@@ -1,0 +1,21 @@
+"""The port's device rule.
+
+Model constructors take ``device=None``, which means the GPU (``"cuda"``). Without
+a card that raises: the port never moves to the CPU on its own. A caller that
+wants the CPU (the tests, for instance) says so with ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device: str | torch.device | None = None) -> torch.device:
+    """``None`` -> ``cuda``; raise if a CUDA device is asked for and none exists."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

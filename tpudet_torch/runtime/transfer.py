@@ -1,0 +1,67 @@
+"""Weight transfer from tpudet's flax variables to the port's ``state_dict``.
+
+``from_flax(variables)`` takes the ``{"params", "batch_stats"}`` tree (nested
+dicts of numpy arrays, as ``jax.device_get`` returns them) and renames each
+leaf by the port's module names, which are flax's:
+
+  * ``.../conv/kernel`` (HWIO) -> ``....conv.weight`` (OIHW); ``.../conv/bias``;
+  * ``.../bn/{scale,bias}`` and ``batch_stats/.../bn/{mean,var}`` keep their
+    names (see :class:`tpudet_torch.nn.layers.BatchNorm`);
+  * the L2-norm ``scale`` of shape ``[1]``.
+
+A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
+missing or extra key, or a shape that differs, raises too.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_LEAVES = {
+    ("params", "conv", "kernel"),
+    ("params", "conv", "bias"),
+    ("params", "bn", "scale"),
+    ("params", "bn", "bias"),
+    ("batch_stats", "bn", "mean"),
+    ("batch_stats", "bn", "var"),
+    ("params", "l2_norm", "scale"),
+}
+
+
+def _walk(tree: Mapping[str, Any], prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` tree -> the port's ``state_dict``."""
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise KeyError(f"unexpected flax collections {sorted(extra)}")
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _walk(variables.get(collection, {})):
+            kind = (collection,) + tuple(path[-2:])
+            if kind not in _LEAVES:
+                raise KeyError(f"no port counterpart for flax leaf "
+                               f"{collection}/{'/'.join(path)}")
+            arr = np.asarray(leaf, np.float32)
+            name = ".".join(path)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                name = ".".join(path[:-1] + ("weight",))
+            if name in out:
+                raise KeyError(f"flax leaf {name} appears twice")
+            out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def load_flax(module: torch.nn.Module, variables: Mapping[str, Any]) -> None:
+    """Copy flax variables into ``module``; raises on any missing or extra key."""
+    module.load_state_dict(from_flax(variables), strict=True)
