@@ -4,15 +4,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each raising on failure (nothing is caught):
   1. card and build: the card's name and power limit, then nvcc builds every
-     kernel of the serving path from the checkout's sources;
+     kernel (NMS, anchor assignment) from the checkout's sources, one nvcc
+     per source, all started together;
   2. each kernel against its plain PyTorch version, on the card, on the shapes
-     the system gives it, with exact equality of the discrete outputs; kernel
-     times with CUDA events;
+     the system gives it, with exact equality of the outputs; kernel times
+     with CUDA events;
   3. serve: SSD300 at full width (300x300, 20 classes + background, 8828
      anchors) from seeded random weights answers requests through
      ``test_one_image``; the kernels' launch counts show the path went through
      them; outputs are checked against the plain versions on the same card and
-     the network against the same weights on the CPU.
+     the network against the same weights on the CPU;
+  4. train: SSD300 at full width, the SSD300 training config (batch 32,
+     bfloat16, weight decay 1e-4, lr 0.01, hard-negative cap 384), trains on
+     one fixed seeded batch through ``train_one_epoch``; the launch counts show
+     every step ran the assignment kernel and the NMS kernel; the loss must be
+     finite and fall; the loss with both kernels equals the loss with both
+     plain versions on the same head outputs; then images/s and device time in
+     bf16 and fp32, a profiler breakdown of one step, and the NMS kernel timed
+     on that step's own mining input.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -27,12 +36,17 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 F32_PEAK_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 NEG = -1e30
 IOU_FLOPS = 18  # per candidate per pick: 4 min/max, 4 sub, 2 clamp, 2 mul, add, sub, div, 2 cmp
+# per (valid gt, anchor) pair: 4 min/max, 2 sub, 2 clamp, mul, add, sub, clamp,
+# div, and the two running-argmax compares
+ASSIGN_PAIR_FLOPS = 15
+TRAIN_BATCH = 32
 
 
 def log(msg):
@@ -197,6 +211,115 @@ def phase_kernels(dev, anchor_corners):
     return timings
 
 
+# --------------------------------------------------------------- assignment
+def assign_inputs(dev, gt, ay1, ay2):
+    """Kernel inputs of an assignment case: gt corners, validity, anchors."""
+    import torch
+
+    from tpudet_torch.ops import matching
+
+    g = matching.unpack_gt(torch.from_numpy(gt).to(dev))
+    return [g.y1x1.contiguous(), g.y2x2.contiguous(), g.valid,
+            torch.from_numpy(ay1).to(dev), torch.from_numpy(ay2).to(dev)]
+
+
+def assign_equal(got, want) -> bool:
+    """All four products equal; best_iou bit for bit."""
+    import torch
+
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            return False
+    return True
+
+
+def assign_work(args, out):
+    """Bytes and float32 operations the assignment of these inputs needs:
+    inputs read once, outputs written once, and the IoU and both argmax
+    compares of every (valid gt, anchor) pair plus each box's area."""
+    gy1, gy2, valid, ay1, ay2 = args
+    b, g = valid.shape
+    a = ay1.shape[-2]
+    n_anchor_sets = 1 if ay1.dim() == 2 else b
+    flops = (ASSIGN_PAIR_FLOPS * int(valid.sum()) * a
+             + 3 * a * n_anchor_sets + 3 * b * g)
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + sum(t.numel() * t.element_size() for t in out))
+    return nbytes, flops
+
+
+def raw_assign_ms(args, reps=200) -> float:
+    """Device time of the assignment kernel alone (both launches and the key
+    memset), through the C entry with preallocated outputs."""
+    import torch
+
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    fn = assign_kernel._library()
+    gy1, gy2, valid, ay1, ay2 = args
+    b, g = valid.shape
+    a = ay1.shape[-2]
+    dev = valid.device
+    outs = [torch.empty((b, g), dtype=torch.int32, device=dev),
+            torch.empty((b, a), dtype=torch.float32, device=dev),
+            torch.empty((b, a), dtype=torch.int32, device=dev),
+            torch.empty((b, a), dtype=torch.bool, device=dev)]
+    keys = torch.empty((b, g), dtype=torch.int64, device=dev)
+    stride = 0 if ay1.dim() == 2 else a * 2
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (gy1.data_ptr(), gy2.data_ptr(), valid.data_ptr(), ay1.data_ptr(),
+            ay2.data_ptr(), stride, b, g, a, keys.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(), stream)
+
+    def launch():
+        if fn(*ptrs) != 0:
+            raise RuntimeError("assignment kernel launch failed")
+
+    return event_ms(launch, reps)
+
+
+def phase_assign(dev, ssd_anchors):
+    """The assignment kernel == its plain version on every case; timed at
+    SSD300's training shape."""
+    import numpy as np
+    import torch
+    from torch_assign_cases import CASES, assign_case, rand_gt, voc_like_gt
+
+    from tpudet_torch.ops import matching
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    ay1, ay2 = (a.numpy() for a in ssd_anchors)
+    cases = [("ssd300_voc_like", voc_like_gt(0, b=TRAIN_BATCH), ay1, ay2),
+             ("ssd300_dense60", rand_gt(np.random.default_rng(1), TRAIN_BATCH, 60, 60,
+                                        n_valid_min=60), ay1, ay2)]
+    cases += [(name, *assign_case(name)) for name in CASES]
+    timing = None
+    for name, gt, a1, a2 in cases:
+        args = assign_inputs(dev, gt, a1, a2)
+        got = assign_kernel.assign_anchors(*args)
+        want = matching.assign_plain(*args)
+        torch.cuda.synchronize()
+        if not assign_equal(got, want):
+            raise AssertionError(f"assignment kernel != plain version on {name}")
+        log(f"assign {name}: gt {tuple(gt.shape)} ({int(args[2].sum())} valid), anchors "
+            f"{tuple(a1.shape)}: kernel == plain (best_iou bit for bit), "
+            f"{int(got.best_set.sum())} best-set anchors")
+        if name == "ssd300_voc_like":
+            ms = raw_assign_ms(args)
+            wrapped = event_ms(lambda: assign_kernel.assign_anchors(*args), 50)
+            plain = event_ms(lambda: matching.assign_plain(*args), 5)
+            nbytes, flops = assign_work(args, got)
+            b_ms, b_by = bound(nbytes, flops)
+            timing = dict(ms=ms, wrapper_ms=wrapped, plain_ms=plain, bound_ms=b_ms,
+                          bound_by=b_by)
+            log(f"assign {name} timing: kernel {ms:.4f} ms, through the wrapper "
+                f"{wrapped:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+                f"({b_by}: {nbytes} B, {flops} flop)")
+    return timing
+
+
 # --------------------------------------------------------------- serving
 def phase_serve(dev, n_requests=10):
     import numpy as np
@@ -336,30 +459,242 @@ def profile_requests(model, images):
         log(f"  {ms / len(images):8.4f} ms/request  {100 * ms / busy:5.1f}%  {name[:90]}")
 
 
-def kernel_record(dev, main_args, launches):
-    """Time the NMS kernel on the main path's own inputs (one request's pool)."""
+# --------------------------------------------------------------- training
+class StepLog:
+    """A ``train_one_epoch`` writer: each step's loss, kept on the device."""
+
+    def __init__(self):
+        self.losses = []
+
+    def add_summary(self, loss, global_step):
+        self.losses.append(loss)
+
+
+def train_model(dev, compute_dtype, images, gt, n_steps):
+    from tpudet_torch.models.ssd import SSD300
+
+    config = {"mode": "train", "data_format": "channels_last", "num_classes": 20,
+              "batch_size": TRAIN_BATCH, "weight_decay": 1e-4, "keep_prob": 1.0,
+              "nms_score_threshold": 0.5, "nms_max_boxes": 20,
+              "nms_iou_threshold": 0.5, "pretraining_weight": None,
+              "compute_dtype": compute_dtype, "hard_neg_cap": 384, "seed": 0}
+
+    def batches():
+        while True:
+            yield images, gt
+
+    provider = {"data_shape": [300, 300, 3], "num_train": TRAIN_BATCH * n_steps,
+                "num_val": 0, "train_generator": (lambda: None, batches()),
+                "val_generator": None}
+    model = SSD300(config, provider)
+    if model.device.type != dev.type:
+        raise AssertionError("SSD300 must default to the card")
+    return model
+
+
+def run_epoch(model, images, gt, warmup: int):
+    """``warmup`` steps through ``train_step``, then one ``train_one_epoch``
+    with the kernels' counts set to 0 just before it and read just after.
+    Returns the losses (warm-up first), the counts, host images/s over the
+    epoch, and the mean device time of a step by CUDA events."""
+    import torch
+
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    lr = 0.01
+    warm = [float(model.train_step(*model._to_device(images, gt), lr))
+            for _ in range(warmup)]
+    torch.cuda.synchronize()
+    writer = StepLog()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    assign_kernel.launches = 0
+    nms_kernel.launches = 0
+    t = time.perf_counter()
+    start.record()
+    mean = model.train_one_epoch(lr, writer)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches}
+    steps = len(writer.losses)
+    losses = warm + [float(x) for x in writer.losses]
+    return dict(losses=losses, mean=mean, counts=counts, steps=steps,
+                images_per_s=TRAIN_BATCH * steps / wall,
+                step_ms=start.elapsed_time(end) / steps)
+
+
+def loss_kernel_vs_plain(model, images, gt):
+    """On the same head outputs of one step: ssd_loss with both kernels ==
+    ssd_loss with both plain versions, on the card. Returns the kernels'
+    inputs on that step: the assignment's, the full-width mining call and the
+    mining pool the NMS kernel was given."""
+    import torch
+
+    from tpudet_torch.heads import ssd as ssd_head
+    from tpudet_torch.ops import matching
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    x, g = model._to_device(images, gt)
+    model.net.train()
+    with torch.no_grad():
+        pconf, pyx, phw = ssd_head.flatten_preds(model.net(model._preprocess(x)), 21)
+
+    def loss():
+        return ssd_head.ssd_loss(pconf, pyx, phw, model.anchors, g, 21, neg_sel_cap=384)
+
+    captured = {}
+    real = {"assign": assign_kernel.assign_anchors, "rows": nms_kernel.nms_rows,
+            "pretopk": nms_kernel.batched_greedy_nms_pretopk}
+
+    def pretopk(*a):
+        captured.setdefault("full", a)
+        return real["pretopk"](*a)
+
+    def rows(*a):
+        captured.setdefault("pool", a)
+        return real["rows"](*a)
+
+    def assign(*a):
+        captured.setdefault("assign", a)
+        return real["assign"](*a)
+
+    try:
+        nms_kernel.batched_greedy_nms_pretopk = pretopk
+        nms_kernel.nms_rows = rows
+        assign_kernel.assign_anchors = assign
+        with_kernels = loss()
+        nms_kernel.nms_rows = nms_ops.batched_greedy_nms
+        assign_kernel.assign_anchors = matching.assign_plain
+        with_plain = loss()
+    finally:
+        nms_kernel.batched_greedy_nms_pretopk = real["pretopk"]
+        nms_kernel.nms_rows = real["rows"]
+        assign_kernel.assign_anchors = real["assign"]
+    torch.cuda.synchronize()
+    if not torch.equal(with_kernels, with_plain):
+        raise AssertionError(f"ssd_loss with the kernels {float(with_kernels)} != with "
+                             f"the plain versions {float(with_plain)}")
+    log(f"ssd_loss on one step's head outputs: kernels == plain versions on the card "
+        f"({float(with_kernels):.6f})")
+    return captured
+
+
+def profile_step(model, images, gt):
+    """Device time by kernel over one train step, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g = model._to_device(images, gt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.train_step(x, g, 0.01)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    if not by_name:
+        log("profiler: no device events recorded")
+        return
+    busy = sum(by_name.values())
+    log(f"profiler over one train step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%), {len(by_name)} distinct kernels")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"  {ms:8.4f} ms/step  {100 * ms / busy:5.1f}%  {name[:90]}")
+    for part in ("assign_kernel", "decode_kernel", "nms_rows_kernel"):
+        ms = sum(v for k, v in by_name.items() if part in k)
+        log(f"  {part}: {ms:.4f} ms/step ({100 * ms / busy:.2f}% of device busy)")
+
+
+def phase_train(dev, n_steps=10, warmup=2):
+    import numpy as np
+    import torch
+    from torch_assign_cases import voc_like_gt
+
+    rng = np.random.default_rng(2)
+    images = rng.uniform(0, 255, (TRAIN_BATCH, 300, 300, 3)).astype(np.float32)
+    gt = voc_like_gt(3, b=TRAIN_BATCH)
+    log(f"train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+
+    t0 = time.perf_counter()
+    model = train_model(dev, "bfloat16", images, gt, n_steps)
+    log(f"SSD300 (train, bf16) built on {model.device} in {time.perf_counter() - t0:.2f} s")
+    bf16 = run_epoch(model, images, gt, warmup)
+    counts, steps, losses = bf16["counts"], bf16["steps"], bf16["losses"]
+    log(f"bf16: {warmup} warm-up steps + {steps} in train_one_epoch; kernel launches "
+        f"in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
+    if steps != n_steps or counts["assign"] != steps or counts["nms_rows"] < steps:
+        raise AssertionError(f"the train path must launch the assignment kernel once "
+                             f"and the NMS kernel at least once per step: {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on one batch: {losses}")
+    log(f"bf16 train: {bf16['images_per_s']:.1f} images/s by the host clock, "
+        f"{bf16['step_ms']:.3f} ms/step by CUDA events, epoch mean {bf16['mean']:.4f}")
+
+    mining = loss_kernel_vs_plain(model, images, gt)
+    profile_step(model, images, gt)
+    max_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    torch.cuda.empty_cache()
+
+    model = train_model(dev, "float32", images, gt, 4)
+    fp32 = run_epoch(model, images, gt, 1)
+    if not all(np.isfinite(fp32["losses"])) or fp32["counts"]["assign"] != fp32["steps"]:
+        raise AssertionError(f"fp32 training failed: {fp32}")
+    log(f"fp32 train (TF32 off): {fp32['images_per_s']:.1f} images/s by the host clock, "
+        f"{fp32['step_ms']:.3f} ms/step by CUDA events, losses "
+        f"{[round(x, 4) for x in fp32['losses']]}")
+    del model
+    torch.cuda.empty_cache()
+    log(f"peak device memory {max_mem:.2f} GiB (bf16 training)")
+    return dict(bf16=bf16, fp32=fp32, mining=mining)
+
+
+def nms_timing(args, plain_reps=5):
+    """The NMS kernel on one main-path input: == plain, kernel ms, plain ms, bound."""
     import torch
 
     from tpudet_torch.ops import nms as nms_ops
     from tpudet_torch.ops.cuda import nms_kernel
 
-    boxes, scores, ns, max_out, thr = main_args
+    boxes, scores, ns, max_out, thr = args
     sel, val = nms_kernel.nms_rows(boxes, scores, ns, max_out, thr)
     psel, pval = nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr)
     torch.cuda.synchronize()
     if not (torch.equal(sel, psel) and torch.equal(val, pval)):
-        raise AssertionError("NMS kernel != plain version on the main path's input")
-    err = 0  # the outputs are indices and flags, equal exactly
+        raise AssertionError("NMS kernel != plain version on a main-path input")
     ms = raw_kernel_ms(boxes, scores, ns, max_out, thr)
-    plain = event_ms(lambda: nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr), 5)
+    plain = event_ms(lambda: nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr),
+                     plain_reps)
     nbytes, flops = nms_work(boxes, scores, sel, val, thr)
     b_ms, b_by = bound(nbytes, flops)
-    return {"name": "nms_rows", "route": "cuda",
-            "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
-            "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
-            "launches": launches, "max_abs_err": float(err), "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                picks=int(val.sum()), shape=list(scores.shape))
+
+
+def assign_timing(args):
+    """The assignment kernel on the train step's own input."""
+    import torch
+
+    from tpudet_torch.ops import matching
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    got = assign_kernel.assign_anchors(*args)
+    want = matching.assign_plain(*args)
+    torch.cuda.synchronize()
+    if not assign_equal(got, want):
+        raise AssertionError("assignment kernel != plain version on the train step's input")
+    ms = raw_assign_ms(args)
+    plain = event_ms(lambda: matching.assign_plain(*args), 5)
+    nbytes, flops = assign_work(args, got)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
 def main() -> int:
@@ -378,15 +713,16 @@ def main() -> int:
     log("TF32 off for float32 convolutions and matmuls")
     dev = torch.device("cuda")
 
-    # 1. card and build
+    # 1. card and build: one nvcc per source, all started together
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     from tpudet_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    lib = build.build("nms")
-    log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s "
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(build.build, ("nms", "assign")))
+    log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s "
         f"({' '.join(build.NVCC_FLAGS)})")
 
     # 2. kernels against their plain versions
@@ -396,16 +732,64 @@ def main() -> int:
     anc = ssd_head.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides))
     anchor_corners = torch.cat([anc.y1x1, anc.y2x2], -1).numpy()
     timings = phase_kernels(dev, anchor_corners)
+    timings["assign_ssd300"] = phase_assign(dev, (anc.y1x1, anc.y2x2))
 
     # 3. serve
-    serve = phase_serve(dev)
-    record = kernel_record(dev, serve["kernel_args"], serve["counts"]["nms_rows"])
-    log(f"nms_rows on the main path's pool: kernel {record['ms']:.4f} ms, plain "
-        f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.6f} ms "
-        f"({record['bound_by']})")
+    n_requests = 10
+    serve = phase_serve(dev, n_requests)
+    serve_nms = nms_timing(serve["kernel_args"])
+    log(f"nms_rows on the serving path's pool: kernel {serve_nms['ms']:.4f} ms, plain "
+        f"{serve_nms['plain_ms']:.4f} ms, bound {serve_nms['bound_ms']:.6f} ms "
+        f"({serve_nms['bound_by']})")
+
+    # 4. train
+    train = phase_train(dev)
+    n_steps = train["bf16"]["steps"]
+    counts = train["bf16"]["counts"]
+    mining = train["mining"]
+    mine_pool = nms_timing(mining["pool"])
+    mine_full = nms_timing(mining["full"], plain_reps=2)
+    log(f"nms_rows on the train step's mining pool {mine_pool['shape']} "
+        f"({mine_pool['picks']} picks, cap 384, IoU 0.7): kernel {mine_pool['ms']:.4f} ms, "
+        f"plain {mine_pool['plain_ms']:.4f} ms, bound {mine_pool['bound_ms']:.6f} ms "
+        f"({mine_pool['bound_by']})")
+    log(f"nms_rows on the same mining scores at full width {mine_full['shape']}: kernel "
+        f"{mine_full['ms']:.4f} ms, plain {mine_full['plain_ms']:.4f} ms, bound "
+        f"{mine_full['bound_ms']:.6f} ms ({mine_full['bound_by']})")
+    assign = assign_timing(mining["assign"])
+    log(f"assign on the train step's input: kernel {assign['ms']:.4f} ms, plain "
+        f"{assign['plain_ms']:.4f} ms, bound {assign['bound_ms']:.6f} ms "
+        f"({assign['bound_by']})")
+
     log(json.dumps({"shapes": timings, "serve_p50_ms": serve["p50"],
-                    "serve_ms": serve["latencies"]}))
-    print(json.dumps({"kernels": [record]}))
+                    "serve_ms": serve["latencies"],
+                    "train_bf16": {k: train["bf16"][k] for k in
+                                   ("images_per_s", "step_ms", "losses", "counts")},
+                    "train_fp32": {k: train["fp32"][k] for k in
+                                   ("images_per_s", "step_ms", "losses", "counts")},
+                    "mining_pool": mine_pool, "mining_full_width": mine_full}))
+    records = [
+        {"name": "nms_rows", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
+         "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
+         "launches": serve["counts"]["nms_rows"] + counts["nms_rows"],
+         "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
+         "launches_per_step": counts["nms_rows"] / n_steps,
+         "max_abs_err": 0.0,  # indices and flags, equal exactly
+         "ms": serve_nms["ms"], "plain_ms": serve_nms["plain_ms"],
+         "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
+         "mining_ms": mine_pool["ms"], "mining_plain_ms": mine_pool["plain_ms"],
+         "mining_bound_ms": mine_pool["bound_ms"], "mining_bound_by": mine_pool["bound_by"],
+         "library_ms": None},
+        {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
+         "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
+         "launches": counts["assign"], "launches_per_request": 0.0,
+         "launches_per_step": counts["assign"] / n_steps,
+         "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
+         "ms": assign["ms"], "plain_ms": assign["plain_ms"],
+         "bound_ms": assign["bound_ms"], "bound_by": assign["bound_by"],
+         "library_ms": None},
+    ]
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The NMS CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (NMS, anchor assignment) against their plain PyTorch
+versions, on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA device exists. The
 file imports no JAX, so it runs on a GPU machine without it:
@@ -10,8 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from tpudet_torch.heads import ssd as t_ssd
+from tpudet_torch.models.ssd import SSD300, _ssd_feat_shapes
+from tpudet_torch.ops import matching as t_matching
 from tpudet_torch.ops import nms as t_nms
-from tpudet_torch.ops.cuda import nms_kernel
+from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+from torch_assign_cases import CASES as ASSIGN_CASES
+from torch_assign_cases import assign_case, voc_like_gt
 from torch_nms_cases import nms_case
 
 CASES = ["random0", "random1", "per_row_boxes", "pretopk", "exhaustion", "zero_area",
@@ -53,3 +59,43 @@ def test_cuda_wrapper_rejects_wrong_dtypes(cuda_device):
     with pytest.raises(TypeError):
         nms_kernel.nms_rows(boxes.double(), scores,
                             torch.zeros(2, dtype=torch.int32, device=cuda_device), 4, 0.5)
+
+
+def _assign_inputs(name):
+    if name == "ssd300":
+        anc = t_ssd.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides))
+        gt, ay1, ay2 = voc_like_gt(0), anc.y1x1.numpy(), anc.y2x2.numpy()
+    else:
+        gt, ay1, ay2 = assign_case(name)
+    g = t_matching.unpack_gt(torch.from_numpy(gt))
+    return [g.y1x1.contiguous(), g.y2x2.contiguous(), g.valid,
+            torch.from_numpy(ay1), torch.from_numpy(ay2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ASSIGN_CASES + ("ssd300",))
+def test_assign_kernel_equals_plain(cuda_device, name):
+    """Exact: indices and flags equal, best_iou equal bit for bit."""
+    cpu = _assign_inputs(name)
+    want = t_matching.assign_plain(*cpu)
+    before = assign_kernel.launches
+    got = assign_kernel.assign_anchors(*(t.to(cuda_device) for t in cpu))
+    torch.cuda.synchronize()
+    assert assign_kernel.launches == before + 1
+    for n, g, w in zip(t_matching.Assignment._fields, got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype, n
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), n
+
+
+@pytest.mark.cuda
+def test_assign_wrapper_rejects_wrong_dtypes_and_devices(cuda_device):
+    args = [t.to(cuda_device) for t in _assign_inputs("random_shared")]
+    with pytest.raises(TypeError):
+        assign_kernel.assign_anchors(*args[:2], args[2].int(), *args[3:])
+    with pytest.raises(TypeError):
+        assign_kernel.assign_anchors(*args[:3], args[3].double(), args[4].double())
+    with pytest.raises(ValueError, match="different devices"):
+        assign_kernel.assign_anchors(*args[:3], args[3].cpu(), args[4].cpu())

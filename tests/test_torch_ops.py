@@ -215,6 +215,20 @@ def test_greedy_nms_single_row_matches_tpudet():
     _assert_same(tuple(t.numpy() for t in got), tuple(np.asarray(w) for w in want))
 
 
+def test_batched_nms_active_mask_matches_tpudet():
+    """Exact: the ``active`` mask of the mining call, with per-row budgets."""
+    boxes, scores, ns, max_out, thr = nms_case("random0")
+    active = np.random.default_rng(4).uniform(size=scores.shape) < 0.5
+    want = jax_nms.batched_greedy_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                                      jnp.asarray(ns), max_out, thr,
+                                      active=jnp.asarray(active))
+    t_scores = torch.tensor(scores, requires_grad=True)
+    got = t_nms.batched_greedy_nms(torch.from_numpy(boxes), t_scores, torch.from_numpy(ns),
+                                   max_out, thr, active=torch.from_numpy(active))
+    _assert_same(tuple(t.numpy() for t in got), tuple(np.asarray(w) for w in want))
+    assert not any(t.requires_grad for t in got)
+
+
 @pytest.mark.parametrize("impl", ["vmap", "batched"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_per_class_nms_matches_tpudet(monkeypatch, impl, seed):

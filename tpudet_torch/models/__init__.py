@@ -1,3 +1,3 @@
-"""Model classes with tpudet's public API (serving slice: SSD300, SSD512)."""
+"""Model classes with tpudet's public API (the SSD slice, trained and served: SSD300, SSD512)."""
 
 from tpudet_torch.models.ssd import SSD300, SSD512  # noqa: F401

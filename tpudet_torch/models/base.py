@@ -1,11 +1,13 @@
 """DetectorBase: the shared model lifecycle (counterpart of
-``tpudet/models/base.py``), serving only in this slice.
+``tpudet/models/base.py``): training through ``train_one_epoch`` and serving
+through ``test_one_image``.
 
 Config keys as in tpudet: mode, data_format, num_classes, weight_decay,
 keep_prob (accepted, unused), batch_size, nms_score_threshold, nms_max_boxes,
-nms_iou_threshold, pretraining_weight, compute_dtype, seed. ``mode: "train"``
-and ``compute_dtype: "bfloat16"`` raise ``NotImplementedError``: they come
-with the SSD training slice of the port.
+nms_iou_threshold, pretraining_weight, compute_dtype ("float32" or "bfloat16"),
+input_dtype ("uint8" sends images to the device as bytes), loss_sync_every,
+seed. The keys of tpudet's trainer that the port does not have yet raise
+``NotImplementedError`` (:data:`UNPORTED_KEYS`).
 
 Weights are initialised from a ``torch.Generator`` seeded with the config's
 ``seed`` on the CPU and then moved to the model's device, so a seed gives the
@@ -14,7 +16,8 @@ same weights on every device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import sys
+from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -22,18 +25,32 @@ import torch
 from tpudet_torch import device as device_lib
 from tpudet_torch.runtime import checkpoint as ckpt
 from tpudet_torch.runtime import config as config_lib
+from tpudet_torch.runtime import optim
 
-_NEXT_SLICE = ("the SSD training slice of the port (ssd_loss, train-mode "
-               "BatchNorm, Momentum, bf16)")
+_FEED = "ROADMAP.md queue 1, the device-resident feed"
+UNPORTED_KEYS = {
+    "device_augment": _FEED,
+    "device_augment_split": _FEED,
+    "no_scan_epoch": _FEED,
+    "dcn_size": "ROADMAP.md queue 1, data parallelism",
+}
+
+
+def global_l2(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``sum(p^2) / 2`` over every parameter (tf.nn.l2_loss summed)."""
+    return sum(0.5 * torch.sum(torch.square(p.float())) for p in params)
 
 
 class DetectorBase:
     """Subclasses set ``input_size`` and implement ``_build`` (create
-    ``self.net`` from ``self.generator`` and any static tables) and
-    ``_decode_outputs``, and optionally ``_load_pretraining``.
+    ``self.net`` from ``self.generator`` and any static tables),
+    ``_loss_from_outputs`` and ``_decode_outputs``, and optionally
+    ``_load_pretraining``.
 
-    ``data_provider`` is accepted for tpudet's ``Model(config, data_provider)``
-    signature; serving does not read it."""
+    ``data_provider`` is tpudet's: ``num_train`` and ``train_generator``, either
+    an ``(initializer, iterator)`` pair or an iterator with an optional
+    ``reset``; it yields numpy ``(images [B, H, W, 3] or [B, 3, H, W],
+    gt [B, G, 5])`` batches."""
 
     input_size: int = None
 
@@ -42,17 +59,33 @@ class DetectorBase:
         model_name = type(self).__name__
         config_lib.validate(
             config, model_name if model_name in config_lib._MODEL_REQUIRED else None)
-        if config["mode"] == "train":
-            raise NotImplementedError(f"mode 'train' comes with {_NEXT_SLICE}")
-        if config.get("compute_dtype", "float32") == "bfloat16":
-            raise NotImplementedError(f"compute_dtype 'bfloat16' comes with {_NEXT_SLICE}")
+        for key, item in UNPORTED_KEYS.items():
+            if config.get(key):
+                raise NotImplementedError(
+                    f"config key {key!r} is not ported yet ({item})")
         self.device = device_lib.resolve(device)
         self.config = config
+        self.mode = config["mode"]
         self.data_format = config["data_format"]
         self.num_classes = config["num_classes"] + 1  # + background
+        self.weight_decay = float(config.get("weight_decay", 0.0))
+        self.batch_size = config["batch_size"] if self.mode == "train" else 1
         self.nms_score_threshold = config.get("nms_score_threshold", 0.5)
         self.nms_max_boxes = config.get("nms_max_boxes", 20)
         self.nms_iou_threshold = config.get("nms_iou_threshold", 0.5)
+        self.compute_dtype = (torch.bfloat16 if config.get("compute_dtype") == "bfloat16"
+                              else torch.float32)
+        # 'uint8' sends a quarter of the bytes to the device; the cast to
+        # float32 happens there
+        self.input_dtype = np.uint8 if config.get("input_dtype") == "uint8" else np.float32
+        if self.mode == "train" and data_provider is not None:
+            self.num_train = data_provider["num_train"]
+            gen = data_provider.get("train_generator")
+            if isinstance(gen, tuple):  # tpudet's (initializer, iterator) shape
+                self.train_initializer, self.train_iterator = gen
+            else:
+                self.train_initializer = getattr(gen, "reset", None)
+                self.train_iterator = gen
         self.global_step = 0
         self.generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
 
@@ -60,9 +93,16 @@ class DetectorBase:
         self._load_pretraining()
         self.net.to(self.device).eval()
         self._mean = self._pixel_mean().to(self.device).reshape(1, 3, 1, 1)
+        self._optimizer = optim.Momentum(0.9)
+        self.velocity = (self._optimizer.init(dict(self.net.named_parameters()))
+                         if self.mode == "train" else None)
 
     # ------------------------------------------------------------- hooks
     def _build(self):
+        raise NotImplementedError
+
+    def _loss_from_outputs(self, outputs, gt, sample_weight=None):
+        """Batch loss; ``sample_weight`` masks batch-padding rows (None: none)."""
         raise NotImplementedError
 
     def _decode_outputs(self, outputs):
@@ -80,12 +120,78 @@ class DetectorBase:
         """NCHW float32 images minus the pixel mean."""
         return images - self._mean
 
+    def _sample_weight(self):
+        """The mask of real batch rows: one device never pads the batch."""
+        return None
+
+    # ------------------------------------------------------------ training
+    def _to_device(self, images, gt):
+        """numpy ``images`` (NHWC, or NCHW for channels_first) and ``gt [B, G, 5]``
+        -> float32 NCHW images and float32 gt on ``self.device``. The layout
+        change and the cast to float32 happen on the device."""
+        if not isinstance(images, np.ndarray) or not isinstance(gt, np.ndarray):
+            raise NotImplementedError(
+                f"the feed must yield numpy batches; device-resident feeds are not "
+                f"ported yet ({_FEED})")
+        x = torch.from_numpy(np.ascontiguousarray(images, self.input_dtype))
+        x = x.to(self.device)
+        if self.data_format == "channels_last":
+            x = x.permute(0, 3, 1, 2)
+        x = x.to(torch.float32, memory_format=torch.contiguous_format)
+        gt = torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(self.device)
+        return x, gt
+
+    def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
+        """One step on a device batch: forward in train mode (which updates the
+        BN running statistics), the loss plus ``weight_decay * global_l2``,
+        backward, and Momentum. Returns the loss as a device scalar."""
+        self.net.train()
+        params = dict(self.net.named_parameters())
+        outputs = self.net(self._preprocess(images))
+        loss = self._loss_from_outputs(outputs, gt, self._sample_weight())
+        loss = loss + self.weight_decay * global_l2(params.values())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        self._optimizer.update(dict(zip(params, grads)), self.velocity, params, lr)
+        self.global_step += 1
+        return loss.detach()
+
+    def train_one_epoch(self, lr, writer=None) -> float:
+        """One epoch of ``num_train // batch_size`` steps; an optional ``writer``
+        gets each step's loss through ``add_summary``.
+
+        Losses stay on the device behind a window of ``loss_sync_every``
+        (config, default 16) steps: each step prints the loss of the step that
+        many iterations back, so the ``\\r`` progress line lags slightly. The
+        returned epoch mean is exact."""
+        if callable(self.train_initializer):
+            self.train_initializer()
+        num_iters = self.num_train // self.batch_size
+        sync_every = max(1, int(self.config.get("loss_sync_every", 16)))
+        losses = []
+        shown = float("nan")
+        for i in range(num_iters):
+            images, gt = next(self.train_iterator)
+            loss = self.train_step(*self._to_device(images, gt), lr)
+            losses.append(loss)
+            if i >= sync_every or i + 1 == num_iters:
+                shown = float(losses[-1] if i + 1 == num_iters else losses[i - sync_every])
+            sys.stdout.write(f"\r>> iters {i}/{num_iters} loss {shown}")
+            sys.stdout.flush()
+            if writer is not None:
+                writer.add_summary(loss, global_step=self.global_step)
+        sys.stdout.write("\n")
+        if not losses:
+            return float("nan")
+        return float(np.mean(torch.stack(losses).cpu().numpy()))
+
     # ------------------------------------------------------------ public API
     @torch.inference_mode()
     def test_one_image(self, images):
         """images: ``[1, H, W, 3]`` (or ``[1, 3, H, W]`` for channels_first).
         Returns ``[scores, bbox (y1x1y2x2 pixels), class_id]`` as numpy arrays
-        with padding stripped."""
+        with padding stripped. Puts the net in eval mode; a later ``train_step``
+        puts it back in train mode."""
+        self.net.eval()
         images = np.ascontiguousarray(images, np.float32)
         if self.data_format == "channels_last":
             images = images.transpose(0, 3, 1, 2)  # the net runs NCHW
@@ -97,14 +203,23 @@ class DetectorBase:
                 cid.cpu().numpy()[valid]]
 
     def save_weight(self, mode: str, path: str):
+        """Write ``{path}-{global_step}.pt``: the net's state, the Momentum
+        velocity (training) and ``global_step``, so a run resumes identically."""
         if mode not in ("latest", "best"):
             raise ValueError(f"mode must be 'latest' or 'best', got {mode!r}")
-        state = {"state_dict": self.net.state_dict(), "global_step": self.global_step}
+        state = {"state_dict": self.net.state_dict(), "global_step": self.global_step,
+                 "velocity": self.velocity or {}}
         fname = ckpt.save_state(path, state, self.global_step)
         print("save", mode, "model in", fname, "successfully")
 
     def load_weight(self, path: str):
         blob = ckpt.load_state(path, map_location=self.device)
         self.net.load_state_dict(blob["state_dict"], strict=True)
+        if self.velocity is not None and blob.get("velocity"):
+            if blob["velocity"].keys() != self.velocity.keys():
+                raise KeyError("the checkpoint's velocity does not match the net's "
+                               "parameters")
+            for k, v in blob["velocity"].items():
+                self.velocity[k].copy_(v)
         self.global_step = int(blob.get("global_step", 0))
         print("load weight", path, "successfully")

@@ -40,6 +40,7 @@ class _SSDFamily(DetectorBase):
             extra_widths=self.extra_widths,
             extra_strides=self.extra_strides,
             generator=self.generator,
+            dtype=self.compute_dtype,
         )
         feat_shapes = _ssd_feat_shapes(self.input_size, self.extra_strides)
         self.anchors = ssd_head.build_anchors(
@@ -51,6 +52,12 @@ class _SSDFamily(DetectorBase):
 
     def load_pretraining_weight(self, path):
         pretrain.inject_vgg16(self.net.feature_extractor.vgg, pretrain.load_vgg16(path))
+
+    def _loss_from_outputs(self, outputs, gt, sample_weight=None):
+        pconf, pyx, phw = ssd_head.flatten_preds(outputs, self.num_classes)
+        return ssd_head.ssd_loss(pconf, pyx, phw, self.anchors, gt, self.num_classes,
+                                 neg_sel_cap=int(self.config.get("hard_neg_cap", 384)),
+                                 sample_weight=sample_weight)
 
     def _decode_outputs(self, outputs):
         pconf, pyx, phw = ssd_head.flatten_preds(outputs, self.num_classes)

@@ -31,14 +31,15 @@ class VGG16Trunk(nn.Module):
     block-5 output (stride 16).
     """
 
-    def __init__(self, generator: Optional[torch.Generator] = None):
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         in_ch = 3
         for block, width, reps in _VGG_CFG:
             for ri in range(reps):
                 self.add_module(f"{block}_{ri + 1}",
                                 Conv(in_ch, width, 3, activation=torch.relu,
-                                     generator=generator))
+                                     generator=generator, dtype=dtype))
                 in_ch = width
 
     def forward(self, x):
@@ -57,26 +58,30 @@ class SSDVGGExtractor(nn.Module):
 
     Each entry of ``extra_strides`` builds a 1x1 ConvBN bottleneck then a 3x3
     ConvBN with that stride (SSD300: strides (2, 2, 1, 2)). Returns the endpoint
-    list ``[conv4_3, conv7, conv8_2, conv9_2, ...]``.
+    list ``[conv4_3, conv7, conv8_2, conv9_2, ...]``. Every conv computes in
+    ``dtype``.
     """
 
     def __init__(self, extra_widths: Sequence[int] = (512, 256, 256, 256),
                  extra_strides: Sequence[int] = (2, 2, 1, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.vgg = VGG16Trunk(generator)
+        self.vgg = VGG16Trunk(generator, dtype)
         self.conv6 = ConvBN(512, 1024, 3, dilation=2, activation=torch.relu,
-                            generator=generator)
-        self.conv7 = ConvBN(1024, 1024, 1, activation=torch.relu, generator=generator)
+                            generator=generator, dtype=dtype)
+        self.conv7 = ConvBN(1024, 1024, 1, activation=torch.relu, generator=generator,
+                            dtype=dtype)
         self.num_extras = len(extra_widths)
         in_ch = 1024
         for i, (width, stride) in enumerate(zip(extra_widths, extra_strides)):
             self.add_module(f"conv{8 + i}_1",
                             ConvBN(in_ch, width // 2, 1, activation=torch.relu,
-                                   generator=generator))
+                                   generator=generator, dtype=dtype))
             self.add_module(f"conv{8 + i}_2",
                             ConvBN(width // 2, width, 3, stride=stride,
-                                   activation=torch.relu, generator=generator))
+                                   activation=torch.relu, generator=generator,
+                                   dtype=dtype))
             in_ch = width
         self.out_channels = [512, 1024, *extra_widths]
 

@@ -7,10 +7,15 @@ Layout is NCHW inside the port. Conventions kept from tpudet:
     max-pooling pads with ``-inf``;
   * glorot-uniform conv kernels and zero biases, drawn from a caller's
     ``torch.Generator``;
-  * BatchNorm with epsilon 1e-3. This slice serves only, so :class:`BatchNorm`
-    is the eval form ``(x - mean) * scale * rsqrt(var + eps) + bias``; its
-    parameter and buffer names (``scale``, ``bias``, ``mean``, ``var``) are
-    flax's, so weights transfer by name.
+  * BatchNorm as flax's ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)``, written
+    by hand (see :class:`BatchNorm`); its parameter and buffer names
+    (``scale``, ``bias``, ``mean``, ``var``) are flax's, so weights transfer by
+    name;
+  * a compute ``dtype`` per module with flax's casts, done explicitly rather
+    than by ``torch.autocast`` (whose per-op choices differ from flax's): a
+    conv casts its input and kernel to ``dtype`` and adds the bias in
+    ``dtype``; BatchNorm reduces and normalises in float32 and returns its
+    input's dtype; parameters stay float32.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1):
@@ -49,11 +55,17 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 
 
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with TF "SAME" padding, glorot-uniform kernel, zero bias."""
+    """``nn.Conv2d`` with TF "SAME" padding, glorot-uniform kernel, zero bias.
+
+    ``dtype`` is the compute type (flax's ``nn.Conv(dtype=...)``): input and
+    kernel are cast to it, and the bias is added after the convolution in it.
+    The parameters stay float32."""
 
     def __init__(self, in_ch: int, filters: int, kernel: int, stride: int = 1,
-                 dilation: int = 1, generator: Optional[torch.Generator] = None):
+                 dilation: int = 1, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_ch, filters, kernel, stride=stride, dilation=dilation)
+        self.compute_dtype = dtype
         with torch.no_grad():
             nn.init.xavier_uniform_(self.weight, generator=generator)
             self.bias.zero_()
@@ -64,14 +76,17 @@ class SameConv2d(nn.Conv2d):
         pass
 
     def forward(self, x):
+        dt = self.compute_dtype
+        x = x.to(dt)
         k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
         top, bottom = same_pads(x.shape[-2], k, s, d)
         left, right = same_pads(x.shape[-1], k, s, d)
         if (top, left) != (bottom, right):  # asymmetric: pad by hand
             x = F.pad(x, (left, right, top, bottom))
             top = left = 0
-        return F.conv2d(x, self.weight, self.bias, self.stride, (top, left),
-                        self.dilation)
+        y = F.conv2d(x, self.weight.to(dt), None, self.stride, (top, left),
+                     self.dilation)
+        return y + self.bias.to(dt).view(1, -1, 1, 1)
 
 
 class Conv(nn.Module):
@@ -79,9 +94,11 @@ class Conv(nn.Module):
 
     def __init__(self, in_ch: int, filters: int, kernel: int, stride: int = 1,
                  dilation: int = 1, activation: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = SameConv2d(in_ch, filters, kernel, stride, dilation, generator)
+        self.conv = SameConv2d(in_ch, filters, kernel, stride, dilation, generator,
+                               dtype)
         self.activation = activation
 
     def forward(self, x):
@@ -90,7 +107,17 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channels (dim 1), epsilon 1e-3."""
+    """BatchNorm over channels (dim 1) with flax's semantics, epsilon 1e-3.
+
+    Train mode (``module.train()``) normalises with the batch statistics,
+    reduced in float32: the mean, and flax's fast biased variance
+    ``max(0, E[x^2] - E[x]^2)``, which the output uses too. The forward pass
+    also updates the running statistics, as flax's ``mutable=["batch_stats"]``
+    does: ``r = 0.99 r + 0.01 batch`` for mean and var, with no gradient.
+    Eval mode normalises with the running statistics. Either way the output is
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, returned in
+    the input's dtype.
+    """
 
     def __init__(self, channels: int):
         super().__init__()
@@ -100,23 +127,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x):
+        x32 = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm (batch statistics and flax's biased-variance "
-                "update) comes with the SSD training slice; call .eval() to serve")
-        mul = self.scale * torch.rsqrt(self.var + BN_EPS)
+            dims = [0, *range(2, x.dim())]
+            mean = torch.mean(x32, dims)
+            var = torch.clamp(torch.mean(x32 * x32, dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return (x - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x32 - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):
-    """Conv(+bias) -> BatchNorm -> optional activation."""
+    """Conv(+bias) -> BatchNorm -> optional activation, in ``dtype``."""
 
     def __init__(self, in_ch: int, filters: int, kernel: int, stride: int = 1,
                  dilation: int = 1, activation: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = SameConv2d(in_ch, filters, kernel, stride, dilation, generator)
+        self.conv = SameConv2d(in_ch, filters, kernel, stride, dilation, generator,
+                               dtype)
         self.bn = BatchNorm(filters)
         self.activation = activation
 
@@ -127,12 +163,18 @@ class ConvBN(nn.Module):
 
 class L2NormScale(nn.Module):
     """L2 normalisation over channels (norm clamped at 1e-12) times ONE learned
-    scalar ``scale`` of shape ``[1]``."""
+    scalar ``scale`` of shape ``[1]``.
+
+    As in tpudet, the compute type is the input's: the norm is taken in
+    float32, the normalised values are cast back to the input's dtype and then
+    multiplied by the scale cast to that dtype."""
 
     def __init__(self, init: float = 20.0):
         super().__init__()
         self.scale = nn.Parameter(torch.full((1,), float(init)))
 
     def forward(self, x):
-        norm = torch.sqrt(torch.sum(torch.square(x), dim=1, keepdim=True))
-        return x / torch.clamp(norm, min=1e-12) * self.scale
+        x32 = x.float()
+        norm = torch.sqrt(torch.sum(torch.square(x32), dim=1, keepdim=True))
+        normed = (x32 / torch.clamp(norm, min=1e-12)).to(x.dtype)
+        return normed * self.scale.to(x.dtype)

@@ -1,0 +1,47 @@
+"""Loss primitives of the SSD family (counterpart of ``tpudet/ops/losses.py``).
+
+Same formulas as tpudet's, written out rather than taken from ``torch.nn``
+(``torch.log_softmax`` sums in another way): elementwise and rowwise functions,
+with the reductions left to the callers. The focal, sigmoid and IoU losses come
+with the families that use them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def smooth_l1(x: torch.Tensor) -> torch.Tensor:
+    """``0.5 x^2`` for ``|x| < 1`` else ``|x| - 0.5``."""
+    ax = torch.abs(x)
+    return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    m = torch.amax(logits, dim=-1)
+    return m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+
+
+def log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Stable log-softmax over the last axis; one serves several CE readouts."""
+    return logits - _logsumexp(logits)[..., None]
+
+
+def ce_from_log_probs(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``-log_probs[..., label]``."""
+    return -torch.gather(log_probs, -1, labels[..., None].long())[..., 0]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sparse softmax CE per row: ``logits [..., C]``, ``labels [...]`` int."""
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return _logsumexp(logits) - picked
+
+
+def weighted_mean(per_sample: torch.Tensor, sample_weight=None) -> torch.Tensor:
+    """Mean over the real samples of a batch; ``sample_weight`` is 1 for real
+    rows and 0 for padding rows (None: a plain mean)."""
+    if sample_weight is None:
+        return torch.mean(per_sample)
+    w = sample_weight.to(per_sample.dtype)
+    return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)

@@ -21,7 +21,7 @@ NEG = -1e30  # score of an inactive candidate; anything <= NEG/2 is never picked
 
 def batched_greedy_nms(boxes: torch.Tensor, scores: torch.Tensor,
                        num_select: torch.Tensor, max_out: int,
-                       iou_threshold: float):
+                       iou_threshold: float, active: torch.Tensor | None = None):
     """Plain batched greedy NMS: every row selects independently.
 
     Args:
@@ -30,13 +30,19 @@ def batched_greedy_nms(boxes: torch.Tensor, scores: torch.Tensor,
       scores: ``[B, N]`` float32, inactive entries at ``<= NEG``.
       num_select: ``[B]`` int budgets; row ``b`` stops after
         ``min(num_select[b], max_out)`` picks or when no live candidate is left.
+      active: optional ``[B, N]`` bool candidate mask (inactive -> ``NEG``).
 
-    Returns ``(sel [B, max_out] int32, valid [B, max_out] bool)``.
+    Returns ``(sel [B, max_out] int32, valid [B, max_out] bool)``. Selection
+    carries no gradient (tpudet's ``stop_gradient``): callers gather
+    differentiable values with the returned indices.
     """
     b, n = scores.shape
     dev = scores.device
+    scores = scores.detach()
+    if active is not None:
+        scores = torch.where(active, scores, NEG)
     s = scores.to(torch.float32).clone()
-    bx = boxes.to(torch.float32)
+    bx = boxes.detach().to(torch.float32)
     if bx.dim() == 2:
         bx = bx.unsqueeze(0).expand(b, n, 4)
     y1, x1, y2, x2 = bx.unbind(-1)
@@ -74,11 +80,10 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     """Single-row greedy NMS: ``boxes [N, 4]``, ``scores [N]``; optional ``active``
     ``[N]`` bool mask and ``num_select`` budget. Returns
     ``(indices [max_out] int32, valid [max_out] bool)``."""
-    if active is not None:
-        scores = torch.where(active, scores, NEG)
     budget = max_out if num_select is None else num_select
     ns = torch.as_tensor([budget], dtype=torch.int32, device=scores.device)
-    sel, valid = batched_greedy_nms(boxes, scores[None], ns, max_out, iou_threshold)
+    sel, valid = batched_greedy_nms(boxes, scores[None], ns, max_out, iou_threshold,
+                                    active=None if active is None else active[None])
     return sel[0], valid[0]
 
 

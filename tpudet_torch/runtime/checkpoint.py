@@ -3,7 +3,9 @@
 ``save_state(path, state, step)`` writes ``{path}-{step}.pt`` (tf.train.Saver's
 ``path-{global_step}`` convention). ``load_state`` accepts an exact file path, a
 ``path-step`` prefix, or a bare prefix, which resolves to the newest step.
-tpudet's ``.tpudet`` msgpack files are not read here yet.
+The models' state holds the net's ``state_dict``, the Momentum ``velocity``
+(keyed like ``named_parameters()``) and ``global_step``. tpudet's ``.tpudet``
+msgpack files are not read here yet.
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ leaf by the port's module names, which are flax's:
 
 A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
 missing or extra key, or a shape that differs, raises too.
+:func:`velocity_from_flax` renames tpudet's Momentum state the same way.
 """
 
 from __future__ import annotations
@@ -65,3 +66,10 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def load_flax(module: torch.nn.Module, variables: Mapping[str, Any]) -> None:
     """Copy flax variables into ``module``; raises on any missing or extra key."""
     module.load_state_dict(from_flax(variables), strict=True)
+
+
+def velocity_from_flax(velocity: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """tpudet's Momentum state (``opt_state.velocity``: the tree of ``params``,
+    as numpy arrays) -> the port's velocity dict, keyed like
+    ``named_parameters()``; HWIO kernels become OIHW."""
+    return from_flax({"params": velocity})
