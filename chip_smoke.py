@@ -7,8 +7,12 @@ Phases, each raising on failure (nothing is caught):
      kernel (NMS, anchor assignment) from the checkout's sources, one nvcc
      per source, all started together;
   2. each kernel against its plain PyTorch version, on the card, on the shapes
-     the system gives it, with exact equality of the outputs; kernel times
-     with CUDA events;
+     the system gives it, with exact equality of the outputs: the NMS kernel's
+     two designs (the sorted bitmask scan for rows up to 1024 candidates, one
+     block per row beyond) on every case, a row holding a NaN included; the
+     assignment kernel on eight cases, in one launch a call, with its scratch
+     left at zero and back-to-back calls of other shapes; kernel times with
+     CUDA events;
   3. serve: SSD300 at full width (300x300, 20 classes + background, 8828
      anchors) from seeded random weights answers requests through
      ``test_one_image``; the kernels' launch counts show the path went through
@@ -20,8 +24,9 @@ Phases, each raising on failure (nothing is caught):
      every step ran the assignment kernel and the NMS kernel; the loss must be
      finite and fall; the loss with both kernels equals the loss with both
      plain versions on the same head outputs; then images/s and device time in
-     bf16 and fp32, a profiler breakdown of one step, and the NMS kernel timed
-     on that step's own mining input.
+     bf16 and fp32, a profiler breakdown of one step, and the NMS kernel's two
+     designs timed in turns on that step's own mining pool (and on a request's
+     decode pool), the per-pick design at full width.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -31,6 +36,7 @@ network agrees with the CPU's to float32 accumulation-order error.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -99,9 +105,16 @@ def nms_cases(anchor_corners):
     scores[rng.uniform(size=scores.shape) < 0.05] = NEG  # positives are not mined
     cases.append(("mining", anchor_corners, scores,
                   rng.integers(0, 400, 32).astype(np.int32), 384, 0.7))
+    # the mining shape with a NaN score in image 0: through the pool, that row
+    # selects nothing, and the pool's check reruns the batch at full width
+    scores = scores.copy()
+    scores[0, int(np.argmax(scores[0]))] = np.nan
+    ns = rng.integers(0, 400, 32).astype(np.int32)
+    ns[0] = 300
+    cases.append(("nan_pool", anchor_corners, scores, ns, 384, 0.7))
     # per-row boxes [5, 300, 4] (tpudet's per-image kernel case), zero-area
-    # boxes (NaN IoU: each box still picked once), tied scores
-    for name in ("per_row_boxes", "zero_area", "ties"):
+    # boxes (NaN IoU: each box still picked once), tied scores, a NaN row
+    for name in ("per_row_boxes", "zero_area", "ties", "nan_row"):
         cases.append((name, *nms_case(name)))
     return cases
 
@@ -129,14 +142,43 @@ def nms_work(boxes, scores, sel, valid, iou_threshold):
     return nbytes, flops
 
 
-def raw_kernel_ms(boxes, scores, ns, max_out, thr, reps=200) -> float:
-    """Device time of the NMS kernel alone: launches through the C entry with
-    preallocated outputs, so the wrapper's Python work stays out of the time."""
+def device_events(fn, reps=1) -> list:
+    """``(name, us)`` of every device operation (kernel, memset, copy) that
+    ``reps`` calls of ``fn`` put on the stream, from torch.profiler (CUPTI),
+    after one call outside the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps=20) -> float:
+    """Device time of one call of ``fn``: its device operations' summed
+    durations, mean over ``reps`` calls. Unlike ``event_ms`` it leaves out the
+    gaps between launches, so it does not rise to the host's launch rate for
+    short kernels."""
+    us = sum(t for _, t in device_events(fn, reps))
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
+def per_pick_launch(boxes, scores, ns, max_out, thr):
+    """One launch of the per-pick NMS kernel (one block per row) through the C
+    entry with preallocated outputs, so the wrapper's Python work stays out of
+    its time."""
     import torch
 
     from tpudet_torch.ops.cuda import nms_kernel
 
-    fn = nms_kernel._library()
+    fn = nms_kernel._library("tpudet_nms_rows")
     b, n = scores.shape
     sel = torch.empty((b, max_out), dtype=torch.int32, device=scores.device)
     valid = torch.empty((b, max_out), dtype=torch.bool, device=scores.device)
@@ -150,7 +192,47 @@ def raw_kernel_ms(boxes, scores, ns, max_out, thr, reps=200) -> float:
         if fn(*ptrs) != 0:
             raise RuntimeError("NMS kernel launch failed")
 
-    return event_ms(launch, reps)
+    return launch
+
+
+def sorted_launch(boxes, scores, ns, max_out, thr, order):
+    """One call of the sorted bitmask scan (its mask and scan launches) over a
+    given order, through the C entry."""
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    fn = nms_kernel._library("tpudet_nms_sorted")
+    b, n = scores.shape
+    p = order.shape[1]
+    sel = torch.empty((b, max_out), dtype=torch.int32, device=scores.device)
+    valid = torch.empty((b, max_out), dtype=torch.bool, device=scores.device)
+    mask = torch.empty((b, p, nms_kernel.mask_stride(p)), dtype=torch.int64,
+                       device=scores.device)
+    stride = 0 if boxes.dim() == 2 else n * 4
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (scores.data_ptr(), boxes.data_ptr(), stride, order.data_ptr(), ns.data_ptr(),
+            b, n, p, max_out, thr, mask.data_ptr(), sel.data_ptr(), valid.data_ptr(),
+            stream)
+
+    def launch():
+        if fn(*ptrs) != 0:
+            raise RuntimeError("NMS kernel launch failed")
+
+    return launch
+
+
+@contextlib.contextmanager
+def per_pick_only():
+    """Within it, the NMS wrapper takes the per-pick design at every width."""
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    limit = nms_kernel.SORTED_SCAN_MAX_WIDTH
+    nms_kernel.SORTED_SCAN_MAX_WIDTH = 0
+    try:
+        yield
+    finally:
+        nms_kernel.SORTED_SCAN_MAX_WIDTH = limit
 
 
 def bound(nbytes, flops):
@@ -159,7 +241,15 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def nms_equal(got, want) -> bool:
+    import torch
+
+    return torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
 def phase_kernels(dev, anchor_corners):
+    """The NMS kernel == its plain version on every case, through nms_rows in
+    both designs and through the pool; times of the synthetic pools."""
     import torch
     from torch_nms_cases import nms_case
 
@@ -169,44 +259,60 @@ def phase_kernels(dev, anchor_corners):
     timings = {}
     for name, boxes, scores, ns, max_out, thr in nms_cases(anchor_corners):
         args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, ns)]
-        sel, val = nms_kernel.nms_rows(*args, max_out, thr)
-        psel, pval = nms_ops.batched_greedy_nms(*args, max_out, thr)
+        want = nms_ops.batched_greedy_nms(*args, max_out, thr)
+        before = dict(nms_kernel.launches_by_path)
+        auto = nms_kernel.nms_rows(*args, max_out, thr)
+        with per_pick_only():
+            per_pick = nms_kernel.nms_rows(*args, max_out, thr)
+        pool = nms_kernel.batched_greedy_nms_pretopk(*args, max_out, thr)
         torch.cuda.synchronize()
-        if not (torch.equal(val, pval) and torch.equal(sel, psel)):
-            raise AssertionError(f"NMS kernel != plain version on {name}")
-        if name == "zero_area" and int(val.sum()) != 4:
+        used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+        for how, got in (("nms_rows", auto), ("per-pick", per_pick), ("pool", pool)):
+            if not nms_equal(got, want):
+                raise AssertionError(f"NMS kernel ({how}) != plain version on {name}")
+        n_picks = want[1].sum(-1)
+        if name == "zero_area" and int(n_picks.sum()) != 4:
             raise AssertionError("zero-area boxes: expected 4 distinct picks")
+        if name.startswith("nan") and int(n_picks[{"nan_row": 1, "nan_pool": 0}[name]]):
+            raise AssertionError(f"{name}: the row holding a NaN selected boxes")
         log(f"nms {name}: scores {tuple(scores.shape)} max_out {max_out} thr {thr}: "
-            f"kernel == plain, {int(val.sum())} picks")
+            f"kernel == plain through nms_rows ({nms_kernel.scan_path(scores.shape[1])}), "
+            f"the per-pick design and the pool; launches by design {used}; "
+            f"{int(n_picks.sum())} picks")
         if name in ("decode_pool", "mining"):
-            ms = raw_kernel_ms(*args, max_out, thr)
+            ms = event_ms(per_pick_launch(*args, max_out, thr), 200)
+            sorted_ms = None
+            if nms_kernel.scan_path(scores.shape[1]) == "sorted_scan":
+                order = nms_kernel.stable_order(args[1])
+                sorted_ms = event_ms(sorted_launch(*args, max_out, thr, order), 200)
             wrapped = event_ms(lambda: nms_kernel.nms_rows(*args, max_out, thr), 50)
             plain = event_ms(lambda: nms_ops.batched_greedy_nms(*args, max_out, thr), 3)
-            nbytes, flops = nms_work(*args[:2], sel, val, thr)
+            nbytes, flops = nms_work(*args[:2], *want, thr)
             b_ms, b_by = bound(nbytes, flops)
-            timings[name] = dict(ms=ms, wrapper_ms=wrapped, plain_ms=plain,
-                                 bound_ms=b_ms, bound_by=b_by)
-            log(f"nms {name} timing: kernel {ms:.4f} ms, through the wrapper "
-                f"{wrapped:.4f} ms, plain {plain:.4f} ms, "
+            timings[name] = dict(per_pick_ms=ms, sorted_ms=sorted_ms, wrapper_ms=wrapped,
+                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+            log(f"nms {name} timing: per-pick kernel {ms:.4f} ms, sorted scan "
+                f"{sorted_ms if sorted_ms is None else round(sorted_ms, 4)} ms (order "
+                f"given), through the wrapper {wrapped:.4f} ms, plain {plain:.4f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {flops} flop)")
 
     boxes, scores, ns, max_out, thr = nms_case("exhaustion")  # one cluster fills the pool
     args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, ns)]
-    before = nms_kernel.launches
+    before = dict(nms_kernel.launches_by_path)
     sel, val = nms_kernel.batched_greedy_nms_pretopk(*args, max_out, thr)
-    reran = nms_kernel.launches - before
+    reran = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
     fsel, fval = nms_kernel.nms_rows(*args, max_out, thr)
     psel, pval = nms_ops.batched_greedy_nms(*args, max_out, thr)
     torch.cuda.synchronize()
-    if reran != 2:
-        raise AssertionError(f"exhaustion scene: expected the full-width rerun "
-                             f"(2 launches), got {reran}")
+    if reran != {"sorted_scan": 1, "per_pick": 1}:
+        raise AssertionError(f"exhaustion scene: expected the pool's sorted scan, then "
+                             f"the full-width rerun, got {reran}")
     for s2, v2 in ((fsel, fval), (psel, pval)):
         if not (torch.equal(val, v2) and torch.equal(sel, s2)):
             raise AssertionError("exhaustion scene: pretopk != full width")
     if int(val.sum()) != 60:
         raise AssertionError(f"exhaustion scene: {int(val.sum())} picks, expected 60")
-    log("nms exhaustion: pool exhausted, full-width rerun through the kernel, "
+    log("nms exhaustion: pool exhausted, full-width rerun through the per-pick kernel, "
         "== full width == plain (60 picks)")
     return timings
 
@@ -250,9 +356,9 @@ def assign_work(args, out):
     return nbytes, flops
 
 
-def raw_assign_ms(args, reps=200) -> float:
-    """Device time of the assignment kernel alone (both launches and the key
-    memset), through the C entry with preallocated outputs."""
+def assign_launch(args):
+    """One launch of the assignment kernel through the C entry, with
+    preallocated outputs and the wrapper's scratch."""
     import torch
 
     from tpudet_torch.ops.cuda import assign_kernel
@@ -266,23 +372,32 @@ def raw_assign_ms(args, reps=200) -> float:
             torch.empty((b, a), dtype=torch.float32, device=dev),
             torch.empty((b, a), dtype=torch.int32, device=dev),
             torch.empty((b, a), dtype=torch.bool, device=dev)]
-    keys = torch.empty((b, g), dtype=torch.int64, device=dev)
+    keys, arrivals = assign_kernel.scratch(dev, b, g)
     stride = 0 if ay1.dim() == 2 else a * 2
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (gy1.data_ptr(), gy2.data_ptr(), valid.data_ptr(), ay1.data_ptr(),
-            ay2.data_ptr(), stride, b, g, a, keys.data_ptr(), outs[0].data_ptr(),
-            outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(), stream)
+            ay2.data_ptr(), stride, b, g, a, keys.data_ptr(), arrivals.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            outs[3].data_ptr(), stream)
 
     def launch():
         if fn(*ptrs) != 0:
             raise RuntimeError("assignment kernel launch failed")
 
-    return event_ms(launch, reps)
+    return launch
+
+
+def scratch_is_zero(dev) -> bool:
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    keys, arrivals = assign_kernel.scratch(dev, 1, 1)
+    return not (bool(keys.any()) or bool(arrivals.any()))
 
 
 def phase_assign(dev, ssd_anchors):
-    """The assignment kernel == its plain version on every case; timed at
-    SSD300's training shape."""
+    """The assignment kernel == its plain version on every case, in one launch
+    a call, with its scratch at zero after each call and across back-to-back
+    calls of other shapes; timed at SSD300's training shape."""
     import numpy as np
     import torch
     from torch_assign_cases import CASES, assign_case, rand_gt, voc_like_gt
@@ -303,11 +418,13 @@ def phase_assign(dev, ssd_anchors):
         torch.cuda.synchronize()
         if not assign_equal(got, want):
             raise AssertionError(f"assignment kernel != plain version on {name}")
+        if not scratch_is_zero(args[2].device):
+            raise AssertionError(f"assignment kernel left its scratch non-zero on {name}")
         log(f"assign {name}: gt {tuple(gt.shape)} ({int(args[2].sum())} valid), anchors "
-            f"{tuple(a1.shape)}: kernel == plain (best_iou bit for bit), "
-            f"{int(got.best_set.sum())} best-set anchors")
+            f"{tuple(a1.shape)}: kernel == plain (best_iou bit for bit), scratch zero "
+            f"after, {int(got.best_set.sum())} best-set anchors")
         if name == "ssd300_voc_like":
-            ms = raw_assign_ms(args)
+            ms = event_ms(assign_launch(args), 200)
             wrapped = event_ms(lambda: assign_kernel.assign_anchors(*args), 50)
             plain = event_ms(lambda: matching.assign_plain(*args), 5)
             nbytes, flops = assign_work(args, got)
@@ -317,6 +434,24 @@ def phase_assign(dev, ssd_anchors):
             log(f"assign {name} timing: kernel {ms:.4f} ms, through the wrapper "
                 f"{wrapped:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
                 f"({b_by}: {nbytes} B, {flops} flop)")
+            ops = [name for name, _ in
+                   device_events(lambda: assign_kernel.assign_anchors(*args))]
+            if len(ops) != 1 or "assign_kernel" not in ops[0]:
+                raise AssertionError(f"one assignment call put {ops} on the stream, "
+                                     f"expected the one kernel")
+            log(f"assign: one call puts one operation on the stream: {ops[0][:60]}")
+
+    # back to back, no sync between: three shapes of [B, G], then the first again
+    names = ("ssd300_voc_like", "random_shared", "ties", "ssd300_voc_like")
+    inputs = [assign_inputs(dev, *next(c[1:] for c in cases if c[0] == n)) for n in names]
+    got = [assign_kernel.assign_anchors(*args) for args in inputs]
+    for name, args, out in zip(names, inputs, got):
+        if not assign_equal(out, matching.assign_plain(*args)):
+            raise AssertionError(f"back-to-back assignment calls: {name} != plain")
+    if not scratch_is_zero(inputs[0][2].device):
+        raise AssertionError("assignment kernel left its scratch non-zero")
+    log(f"assign back to back, {[tuple(a[2].shape) for a in inputs]}: each == plain, "
+        f"scratch zero after")
     return timing
 
 
@@ -327,7 +462,6 @@ def phase_serve(dev, n_requests=10):
 
     from tpudet_torch.heads import ssd as ssd_head
     from tpudet_torch.models.ssd import SSD300
-    from tpudet_torch.ops import nms as nms_ops
     from tpudet_torch.ops.cuda import nms_kernel
 
     config = {"mode": "test", "data_format": "channels_last", "num_classes": 20,
@@ -349,17 +483,17 @@ def phase_serve(dev, n_requests=10):
     torch.cuda.synchronize()
 
     # the main path, counted
-    nms_kernel.launches = 0
+    reset_nms_counts()
     latencies, results = [], []
     for img in images:
         t = time.perf_counter()
         results.append(model.test_one_image(img))
         latencies.append((time.perf_counter() - t) * 1e3)
-    counts = {"nms_rows": nms_kernel.launches}
+    counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path}
     log(f"served {n_requests} requests; kernel launches {counts}")
-    if counts["nms_rows"] < n_requests:
-        raise AssertionError("the serving path did not launch the NMS kernel "
-                             "once per request")
+    if counts["nms_rows"] < n_requests or counts["sorted_scan"] < n_requests:
+        raise AssertionError("the serving path did not launch the NMS kernel's sorted "
+                             "scan once per request")
     n_dets = [len(r[0]) for r in results]
     for scores, boxes, cid in results:
         if not (np.isfinite(scores).all() and np.isfinite(boxes).all()):
@@ -394,7 +528,7 @@ def phase_serve(dev, n_requests=10):
         nms_kernel.nms_rows = capture
         try:
             with_kernel = decode()
-            nms_kernel.nms_rows = nms_ops.batched_greedy_nms
+            nms_kernel.nms_rows = nms_kernel.plain_rows
             with_plain = decode()
         finally:
             nms_kernel.nms_rows = real_rows
@@ -425,11 +559,20 @@ def phase_serve(dev, n_requests=10):
             f"over levels {worst:.2e}")
 
     profile_requests(model, images[:3])
-    boxes, scores, ns, max_out, thr = captured["args"]
+    boxes, scores, ns, max_out, thr, order = captured["args"]
     log(f"main-path NMS input: scores {tuple(scores.shape)}, boxes "
-        f"{tuple(boxes.shape)}, max_out {max_out}, thr {thr}")
+        f"{tuple(boxes.shape)}, the pool's order {tuple(order.shape)}, max_out "
+        f"{max_out}, thr {thr}")
     return dict(latencies=latencies, p50=p50, counts=counts,
-                kernel_args=(boxes, scores, ns, max_out, thr))
+                kernel_args=captured["args"])
+
+
+def reset_nms_counts():
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    nms_kernel.launches = 0
+    for path in nms_kernel.launches_by_path:
+        nms_kernel.launches_by_path[path] = 0
 
 
 def profile_requests(model, images):
@@ -508,14 +651,15 @@ def run_epoch(model, images, gt, warmup: int):
     writer = StepLog()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     assign_kernel.launches = 0
-    nms_kernel.launches = 0
+    reset_nms_counts()
     t = time.perf_counter()
     start.record()
     mean = model.train_one_epoch(lr, writer)
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches}
+    counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches,
+              **nms_kernel.launches_by_path}
     steps = len(writer.losses)
     losses = warm + [float(x) for x in writer.losses]
     return dict(losses=losses, mean=mean, counts=counts, steps=steps,
@@ -532,7 +676,6 @@ def loss_kernel_vs_plain(model, images, gt):
 
     from tpudet_torch.heads import ssd as ssd_head
     from tpudet_torch.ops import matching
-    from tpudet_torch.ops import nms as nms_ops
     from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 
     x, g = model._to_device(images, gt)
@@ -564,7 +707,7 @@ def loss_kernel_vs_plain(model, images, gt):
         nms_kernel.nms_rows = rows
         assign_kernel.assign_anchors = assign
         with_kernels = loss()
-        nms_kernel.nms_rows = nms_ops.batched_greedy_nms
+        nms_kernel.nms_rows = nms_kernel.plain_rows
         assign_kernel.assign_anchors = matching.assign_plain
         with_plain = loss()
     finally:
@@ -604,7 +747,7 @@ def profile_step(model, images, gt):
         f"({100 * busy / wall_ms:.1f}%), {len(by_name)} distinct kernels")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  {ms:8.4f} ms/step  {100 * ms / busy:5.1f}%  {name[:90]}")
-    for part in ("assign_kernel", "decode_kernel", "nms_rows_kernel"):
+    for part in ("assign_kernel", "nms_mask_kernel", "nms_scan_kernel", "nms_rows_kernel"):
         ms = sum(v for k, v in by_name.items() if part in k)
         log(f"  {part}: {ms:.4f} ms/step ({100 * ms / busy:.2f}% of device busy)")
 
@@ -627,9 +770,11 @@ def phase_train(dev, n_steps=10, warmup=2):
     counts, steps, losses = bf16["counts"], bf16["steps"], bf16["losses"]
     log(f"bf16: {warmup} warm-up steps + {steps} in train_one_epoch; kernel launches "
         f"in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
-    if steps != n_steps or counts["assign"] != steps or counts["nms_rows"] < steps:
+    if (steps != n_steps or counts["assign"] != steps or counts["nms_rows"] < steps
+            or counts["sorted_scan"] < steps):
         raise AssertionError(f"the train path must launch the assignment kernel once "
-                             f"and the NMS kernel at least once per step: {counts}")
+                             f"and the NMS kernel's sorted scan at least once per step: "
+                             f"{counts}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -656,26 +801,88 @@ def phase_train(dev, n_steps=10, warmup=2):
     return dict(bf16=bf16, fp32=fp32, mining=mining)
 
 
-def nms_timing(args, plain_reps=5):
-    """The NMS kernel on one main-path input: == plain, kernel ms, plain ms, bound."""
+def nms_pool_timing(args, plain_reps=5):
+    """The NMS kernel's two designs on one main-path pool (a captured nms_rows
+    call with the pool's order), timed in turns: per-pick, sorted scan, sorted
+    scan, per-pick. The sorted scan walks the full rows through the order; the
+    per-pick kernel runs on the pool's gathered copies, as it did before the
+    scan existed. Both == plain. The plain time and the bound are those of the
+    gathered pool."""
+    import torch
+
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    boxes, scores, ns, max_out, thr, order = args
+    idx = order.long()
+    top_s = torch.gather(scores, 1, idx).contiguous()
+    top_b = (boxes[idx] if boxes.dim() == 2
+             else torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))).contiguous()
+    want = nms_kernel.plain_rows(*args)
+    new = nms_kernel.nms_rows(*args)
+    with per_pick_only():
+        psel, pval = nms_kernel.nms_rows(top_b, top_s, ns, max_out, thr)
+    old = (torch.where(pval, torch.gather(order, 1, psel.long()), 0), pval)
+    torch.cuda.synchronize()
+    if not (nms_equal(new, want) and nms_equal(old, want)):
+        raise AssertionError("NMS kernel != plain version on a main-path pool")
+    old_launch = per_pick_launch(top_b, top_s, ns, max_out, thr)
+    new_launch = sorted_launch(boxes, scores, ns, max_out, thr, order)
+    turns = [event_ms(old_launch, 200), event_ms(new_launch, 200),
+             event_ms(new_launch, 200), event_ms(old_launch, 200)]
+    device_turns = [device_ms(old_launch), device_ms(new_launch),
+                    device_ms(new_launch), device_ms(old_launch)]
+    pool_call = event_ms(
+        lambda: nms_kernel.batched_greedy_nms_pretopk(boxes, scores, ns, max_out, thr), 50)
+    plain = event_ms(lambda: nms_ops.batched_greedy_nms(top_b, top_s, ns, max_out, thr),
+                     plain_reps)
+    nbytes, flops = nms_work(top_b, top_s, psel, pval, thr)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(ms=(turns[1] + turns[2]) / 2, per_pick_ms=(turns[0] + turns[3]) / 2,
+                turns_ms=turns, device_ms=(device_turns[1] + device_turns[2]) / 2,
+                per_pick_device_ms=(device_turns[0] + device_turns[3]) / 2,
+                device_turns_ms=device_turns, pool_call_ms=pool_call, plain_ms=plain,
+                bound_ms=b_ms,
+                bound_by=b_by, picks=int(pval.sum()), shape=list(top_s.shape),
+                full_shape=list(scores.shape))
+
+
+def nms_full_timing(args, plain_reps=2):
+    """The per-pick design on one main-path call at full width (wider than the
+    sorted scan takes), timed twice: == plain, kernel ms, plain ms, bound."""
     import torch
 
     from tpudet_torch.ops import nms as nms_ops
     from tpudet_torch.ops.cuda import nms_kernel
 
     boxes, scores, ns, max_out, thr = args
+    if nms_kernel.scan_path(scores.shape[1]) != "per_pick":
+        raise AssertionError(f"full width {tuple(scores.shape)} is not on the wide path")
     sel, val = nms_kernel.nms_rows(boxes, scores, ns, max_out, thr)
-    psel, pval = nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr)
+    want = nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr)
     torch.cuda.synchronize()
-    if not (torch.equal(sel, psel) and torch.equal(val, pval)):
-        raise AssertionError("NMS kernel != plain version on a main-path input")
-    ms = raw_kernel_ms(boxes, scores, ns, max_out, thr)
+    if not nms_equal((sel, val), want):
+        raise AssertionError("NMS kernel != plain version at full width")
+    launch = per_pick_launch(boxes, scores, ns, max_out, thr)
+    turns = [event_ms(launch, 200) for _ in range(2)]
     plain = event_ms(lambda: nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr),
                      plain_reps)
     nbytes, flops = nms_work(boxes, scores, sel, val, thr)
     b_ms, b_by = bound(nbytes, flops)
-    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                picks=int(val.sum()), shape=list(scores.shape))
+    return dict(ms=sum(turns) / 2, turns_ms=turns, device_ms=device_ms(launch, 5),
+                plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, picks=int(val.sum()), shape=list(scores.shape))
+
+
+def log_pool(what, t):
+    log(f"NMS on {what} {t['shape']} of {t['full_shape']} ({t['picks']} picks), in turns "
+        f"per-pick/sorted/sorted/per-pick {[round(x, 5) for x in t['turns_ms']]} ms: "
+        f"sorted scan {t['ms']:.5f} ms, per-pick {t['per_pick_ms']:.5f} ms "
+        f"({t['per_pick_ms'] / t['ms']:.1f}x); device time (profiler) in turns "
+        f"{[round(x, 5) for x in t['device_turns_ms']]} ms: sorted {t['device_ms']:.5f}, "
+        f"per-pick {t['per_pick_device_ms']:.5f}; the whole pool call (sort, scan, "
+        f"check) {t['pool_call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
+        f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
 
 def assign_timing(args):
@@ -690,11 +897,13 @@ def assign_timing(args):
     torch.cuda.synchronize()
     if not assign_equal(got, want):
         raise AssertionError("assignment kernel != plain version on the train step's input")
-    ms = raw_assign_ms(args)
+    launch = assign_launch(args)
+    ms = event_ms(launch, 200)
     plain = event_ms(lambda: matching.assign_plain(*args), 5)
     nbytes, flops = assign_work(args, got)
     b_ms, b_by = bound(nbytes, flops)
-    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    return dict(ms=ms, device_ms=device_ms(launch), plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def main() -> int:
@@ -737,27 +946,26 @@ def main() -> int:
     # 3. serve
     n_requests = 10
     serve = phase_serve(dev, n_requests)
-    serve_nms = nms_timing(serve["kernel_args"])
-    log(f"nms_rows on the serving path's pool: kernel {serve_nms['ms']:.4f} ms, plain "
-        f"{serve_nms['plain_ms']:.4f} ms, bound {serve_nms['bound_ms']:.6f} ms "
-        f"({serve_nms['bound_by']})")
+    serve_nms = nms_pool_timing(serve["kernel_args"])
+    log_pool("the serving path's decode pool", serve_nms)
 
     # 4. train
     train = phase_train(dev)
     n_steps = train["bf16"]["steps"]
     counts = train["bf16"]["counts"]
     mining = train["mining"]
-    mine_pool = nms_timing(mining["pool"])
-    mine_full = nms_timing(mining["full"], plain_reps=2)
-    log(f"nms_rows on the train step's mining pool {mine_pool['shape']} "
-        f"({mine_pool['picks']} picks, cap 384, IoU 0.7): kernel {mine_pool['ms']:.4f} ms, "
-        f"plain {mine_pool['plain_ms']:.4f} ms, bound {mine_pool['bound_ms']:.6f} ms "
-        f"({mine_pool['bound_by']})")
-    log(f"nms_rows on the same mining scores at full width {mine_full['shape']}: kernel "
-        f"{mine_full['ms']:.4f} ms, plain {mine_full['plain_ms']:.4f} ms, bound "
-        f"{mine_full['bound_ms']:.6f} ms ({mine_full['bound_by']})")
+    mine_pool = nms_pool_timing(mining["pool"])
+    log_pool("the train step's mining pool (cap 384, IoU 0.7)", mine_pool)
+    mine_full = nms_full_timing(mining["full"])
+    log(f"NMS per-pick design on the same mining scores at full width "
+        f"{mine_full['shape']} ({mine_full['picks']} picks): "
+        f"{[round(x, 4) for x in mine_full['turns_ms']]} ms (device time "
+        f"{mine_full['device_ms']:.4f} ms), plain "
+        f"{mine_full['plain_ms']:.4f} ms, bound {mine_full['bound_ms']:.6f} ms "
+        f"({mine_full['bound_by']})")
     assign = assign_timing(mining["assign"])
-    log(f"assign on the train step's input: kernel {assign['ms']:.4f} ms, plain "
+    log(f"assign on the train step's input: kernel {assign['ms']:.4f} ms (device time "
+        f"{assign['device_ms']:.4f} ms), plain "
         f"{assign['plain_ms']:.4f} ms, bound {assign['bound_ms']:.6f} ms "
         f"({assign['bound_by']})")
 
@@ -767,7 +975,8 @@ def main() -> int:
                                    ("images_per_s", "step_ms", "losses", "counts")},
                     "train_fp32": {k: train["fp32"][k] for k in
                                    ("images_per_s", "step_ms", "losses", "counts")},
-                    "mining_pool": mine_pool, "mining_full_width": mine_full}))
+                    "serve_pool": serve_nms, "mining_pool": mine_pool,
+                    "mining_full_width": mine_full}))
     records = [
         {"name": "nms_rows", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
          "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
@@ -775,17 +984,41 @@ def main() -> int:
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
+         # the main path's design, the sorted bitmask scan, on the decode pool
          "ms": serve_nms["ms"], "plain_ms": serve_nms["plain_ms"],
          "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
-         "mining_ms": mine_pool["ms"], "mining_plain_ms": mine_pool["plain_ms"],
-         "mining_bound_ms": mine_pool["bound_ms"], "mining_bound_by": mine_pool["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "paths": {
+             "sorted_scan": {
+                 "launches": serve["counts"]["sorted_scan"] + counts["sorted_scan"],
+                 "ms": serve_nms["ms"], "device_ms": serve_nms["device_ms"],
+                 "plain_ms": serve_nms["plain_ms"],
+                 "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
+                 "library_ms": None, "mining_ms": mine_pool["ms"],
+                 "mining_device_ms": mine_pool["device_ms"],
+                 "mining_plain_ms": mine_pool["plain_ms"],
+                 "mining_bound_ms": mine_pool["bound_ms"],
+                 "mining_bound_by": mine_pool["bound_by"]},
+             "per_pick": {
+                 "launches": serve["counts"]["per_pick"] + counts["per_pick"],
+                 "ms": serve_nms["per_pick_ms"],
+                 "device_ms": serve_nms["per_pick_device_ms"],
+                 "plain_ms": serve_nms["plain_ms"],
+                 "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
+                 "library_ms": None, "mining_ms": mine_pool["per_pick_ms"],
+                 "mining_device_ms": mine_pool["per_pick_device_ms"],
+                 "full_width_ms": mine_full["ms"],
+                 "full_width_device_ms": mine_full["device_ms"],
+                 "full_width_plain_ms": mine_full["plain_ms"],
+                 "full_width_bound_ms": mine_full["bound_ms"],
+                 "full_width_bound_by": mine_full["bound_by"]}}},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": counts["assign"], "launches_per_request": 0.0,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
-         "ms": assign["ms"], "plain_ms": assign["plain_ms"],
+         "ms": assign["ms"], "device_ms": assign["device_ms"],
+         "plain_ms": assign["plain_ms"],
          "bound_ms": assign["bound_ms"], "bound_by": assign["bound_by"],
          "library_ms": None},
     ]

@@ -18,10 +18,8 @@ from tpudet_torch.ops import nms as t_nms
 from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 from torch_assign_cases import CASES as ASSIGN_CASES
 from torch_assign_cases import assign_case, voc_like_gt
+from torch_nms_cases import NAMES as CASES
 from torch_nms_cases import nms_case
-
-CASES = ["random0", "random1", "per_row_boxes", "pretopk", "exhaustion", "zero_area",
-         "ties"]
 
 
 @pytest.fixture
@@ -34,7 +32,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CASES)
 @pytest.mark.parametrize("pretopk", [False, True])
-def test_cuda_kernel_equals_plain(cuda_device, name, pretopk):
+@pytest.mark.parametrize("path", ["sorted_scan", "per_pick"])
+def test_cuda_kernel_equals_plain(cuda_device, monkeypatch, name, pretopk, path):
+    """Both designs: ``per_pick`` lowers the sorted scan's width limit to 0."""
+    if path == "per_pick":
+        monkeypatch.setattr(nms_kernel, "SORTED_SCAN_MAX_WIDTH", 0)
     boxes, scores, ns, max_out, thr = nms_case(name)
     cpu = [torch.from_numpy(a) for a in (boxes, scores, ns)]
     if pretopk:
@@ -42,10 +44,11 @@ def test_cuda_kernel_equals_plain(cuda_device, name, pretopk):
     else:
         want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
     fn = nms_kernel.batched_greedy_nms_pretopk if pretopk else nms_kernel.nms_rows
-    before = nms_kernel.launches
+    taken = path if pretopk else nms_kernel.scan_path(scores.shape[1])
+    before = dict(nms_kernel.launches_by_path)
     sel, val = fn(*(t.to(cuda_device) for t in cpu), max_out, thr)
     torch.cuda.synchronize()
-    assert nms_kernel.launches > before
+    assert nms_kernel.launches_by_path[taken] > before[taken]
     np.testing.assert_array_equal(val.cpu().numpy(), want[1].numpy())
     np.testing.assert_array_equal(sel.cpu().numpy(), want[0].numpy())
 
@@ -88,6 +91,24 @@ def test_assign_kernel_equals_plain(cuda_device, name):
         if g.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w), n
+
+
+@pytest.mark.cuda
+def test_assign_kernel_scratch_is_zero_between_calls_of_other_shapes(cuda_device):
+    """One launch a call leaves the shared keys and counters at zero, so calls
+    of other [B, G] (and the first again) stay equal to the plain version."""
+    for name in ("ssd300", "random_shared", "ties", "ssd300"):
+        cpu = _assign_inputs(name)
+        want = t_matching.assign_plain(*cpu)
+        got = assign_kernel.assign_anchors(*(t.to(cuda_device) for t in cpu))
+        torch.cuda.synchronize()
+        for n, g, w in zip(t_matching.Assignment._fields, got, want):
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w), (name, n)
+        keys, arrivals = assign_kernel.scratch(got.best_iou.device, 1, 1)
+        assert not keys.any() and not arrivals.any(), name
 
 
 @pytest.mark.cuda

@@ -15,6 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra.numpy import arrays
 
 from tpudet.ops import anchors as jax_anchors
 from tpudet.ops import boxes as jax_boxes
@@ -26,6 +29,7 @@ from tpudet_torch.ops import boxes as t_boxes
 from tpudet_torch.ops import nms as t_nms
 from tpudet_torch.ops.cuda import build as t_build
 from tpudet_torch.ops.cuda import nms_kernel
+from torch_nms_cases import NAMES as NMS_CASES
 from torch_nms_cases import corners, nms_case
 
 torch.set_num_threads(1)
@@ -91,6 +95,13 @@ def test_kernel_wrapper_checks_device_shape_dtype_and_layout():
         nms_kernel.nms_rows(torch.zeros((8, 4)), torch.zeros((2, 8)), ns.long(), 4, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         nms_kernel.nms_rows(torch.zeros((8, 4)), torch.zeros((8, 2)).T, ns, 4, 0.5)
+    args = (torch.zeros((2000, 4)), torch.zeros((2, 2000)), ns, 4, 0.5)
+    with pytest.raises(TypeError, match="order"):
+        nms_kernel.nms_rows(*args, torch.zeros((2, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match="order"):
+        nms_kernel.nms_rows(*args, torch.zeros((3, 8), dtype=torch.int32))
+    with pytest.raises(ValueError, match="sorted scan"):
+        nms_kernel.nms_rows(*args, torch.zeros((2, 1025), dtype=torch.int32))
 
 
 # ------------------------------------------------------------ boxes/anchors
@@ -169,14 +180,13 @@ def _assert_same(got, want):
     np.testing.assert_array_equal(got[0], want[0])
 
 
-@pytest.mark.parametrize("name", ["random0", "random1", "per_row_boxes", "pretopk",
-                                  "exhaustion", "zero_area", "ties"])
+@pytest.mark.parametrize("name", NMS_CASES)
 def test_plain_nms_equals_pallas_kernel(name):
     case = nms_case(name)
     _assert_same(_port(*case), _pallas(*case))
 
 
-@pytest.mark.parametrize("name", ["pretopk", "exhaustion"])
+@pytest.mark.parametrize("name", ["pretopk", "exhaustion", "nan_row"])
 def test_pretopk_equals_pallas_pretopk(name):
     case = nms_case(name)
     _assert_same(_port(*case, pretopk=True), _pallas(*case, pretopk=True))
@@ -187,13 +197,13 @@ def test_pretopk_exhaustion_reruns_full_width(monkeypatch):
     calls = []
     real = nms_kernel.nms_rows
 
-    def spy(boxes, scores, *a):
-        calls.append(scores.shape[-1])
-        return real(boxes, scores, *a)
+    def spy(boxes, scores, ns, max_out, thr, order=None):
+        calls.append((scores.shape[-1], None if order is None else order.shape[-1]))
+        return real(boxes, scores, ns, max_out, thr, order)
 
     monkeypatch.setattr(nms_kernel, "nms_rows", spy)
     sel, val = _port(*nms_case("exhaustion"), pretopk=True)
-    assert calls == [1024, 1200]
+    assert calls == [(1200, 1024), (1200, None)]  # the pool's order, then full width
     assert int(val.sum()) == 60
 
 
@@ -249,3 +259,110 @@ def test_per_class_nms_matches_tpudet(monkeypatch, impl, seed):
     assert wv.sum() > c
     np.testing.assert_allclose(gs.numpy()[wv], np.asarray(ws)[wv], rtol=1e-6)
     np.testing.assert_allclose(gb.numpy()[wv], np.asarray(wb)[wv], rtol=1e-6)
+
+
+def test_nan_row_selects_nothing():
+    boxes, scores, ns, max_out, thr = nms_case("nan_row")
+    _, val = _port(boxes, scores, ns, max_out, thr)
+    assert val.sum(-1).tolist()[1] == 0 and val[0].all() and val[2].sum() > 0
+
+
+# ------------------------------------------------------------ the sorted scan
+def _iou_matrix(bx):
+    """``[P, Q]`` float32 IoU of candidate q against pick p, in the plain
+    version's order of operations (``ops/nms.py``)."""
+    y1, x1, y2, x2 = bx.unbind(-1)
+    area = (y2 - y1) * (x2 - x1)
+    inter = (torch.clamp(torch.minimum(y2[None, :], y2[:, None])
+                         - torch.maximum(y1[None, :], y1[:, None]), min=0.0)
+             * torch.clamp(torch.minimum(x2[None, :], x2[:, None])
+                           - torch.maximum(x1[None, :], x1[:, None]), min=0.0))
+    return inter / (area[None, :] + area[:, None] - inter)
+
+
+def _bitmask_scan(boxes, scores, num_select, max_out, thr):
+    """Plain-torch mirror of ``csrc/nms.cu``'s sorted bitmask scan: the upper
+    triangle of IoU bits in sorted positions packed into 64-bit words, then a
+    walk over the words that takes the lowest live bit and ORs in its row."""
+    b, n = scores.shape
+    order = nms_kernel.stable_order(scores).long()
+    bx = boxes if boxes.dim() == 3 else boxes.expand(b, n, 4)
+    sel = torch.zeros((b, max_out), dtype=torch.int32)
+    valid = torch.zeros((b, max_out), dtype=torch.bool)
+    words = -(-n // 64)
+    for r in range(b):
+        s = scores[r][order[r]]
+        dead = ~(s > t_nms.NEG / 2)
+        n_live = int(torch.nonzero(dead)[0, 0]) if bool(dead.any()) else n
+        hit = (_iou_matrix(bx[r][order[r]]) > thr) & torch.ones(n, n, dtype=torch.bool).triu(1)
+        bits = np.zeros((n, words * 64), np.uint8)
+        bits[:, :n] = hit.numpy()
+        mask = np.packbits(bits, axis=1, bitorder="little").view(np.uint64)  # [n, words]
+        removed = [0] * words
+        k, n_sel = 0, min(int(num_select[r]), max_out)
+        for w in range(words):
+            if 64 * w >= n_live or k >= n_sel:
+                break
+            cur = removed[w]
+            span = (1 << min(64, n_live - 64 * w)) - 1
+            live = ~cur & span
+            while live and k < n_sel:
+                t = (live & -live).bit_length() - 1
+                p = 64 * w + t
+                sel[r, k], valid[r, k] = int(order[r, p]), True
+                k += 1
+                cur |= int(mask[p, w]) | (1 << t)
+                for u in range(w + 1, words):
+                    removed[u] |= int(mask[p, u])
+                live = ~cur & span
+    return sel, valid
+
+
+@pytest.mark.parametrize("name", NMS_CASES)
+def test_sorted_bitmask_scan_equals_plain_nms(name):
+    boxes, scores, ns, max_out, thr = nms_case(name)
+    args = (torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(ns))
+    want = t_nms.batched_greedy_nms(*args, max_out, thr)
+    got = _bitmask_scan(*args, max_out, thr)
+    _assert_same(tuple(t.numpy() for t in got), tuple(t.numpy() for t in want))
+
+
+_coord = st.floats(0, 100, width=32)
+_side = st.one_of(st.just(0.0), st.floats(0, 50, width=32))
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(st.integers(1, 48).flatmap(lambda n: st.tuples(
+    arrays(np.float32, (n, 2), elements=_coord), arrays(np.float32, (n, 2), elements=_side))))
+def test_iou_is_symmetric_bit_for_bit(corner_and_size):
+    """One triangle of the mask suffices: IoU(i, j) and IoU(j, i) have the same
+    bits, zero-area pairs (NaN) included."""
+    y1x1, hw = corner_and_size
+    bx = torch.from_numpy(np.concatenate([y1x1, y1x1 + hw], -1))
+    iou = _iou_matrix(bx)
+    assert torch.equal(iou.view(torch.int32), iou.T.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("width,path", [(1, "sorted_scan"), (512, "sorted_scan"),
+                                        (768, "sorted_scan"), (1024, "sorted_scan"),
+                                        (1025, "per_pick"), (8828, "per_pick")])
+def test_scan_path_routes_by_width(width, path):
+    assert nms_kernel.scan_path(width) == path
+
+
+_score = st.one_of(st.sampled_from([float("nan"), -0.0, 0.0, 0.5, 1.0, -1e30,
+                                    float("inf"), float("-inf")]),
+                   st.floats(-2, 2, width=32))
+
+
+@settings(max_examples=80, deadline=None, database=None)
+@given(arrays(np.float32, st.tuples(st.integers(1, 3), st.integers(1, 40)),
+              elements=_score))
+def test_stable_order_is_descending_nan_first_ties_by_index(scores):
+    order = nms_kernel.stable_order(torch.from_numpy(scores))
+    assert order.dtype == torch.int32 and order.shape == scores.shape
+    for row, got in zip(scores, order.tolist()):
+        want = sorted(range(len(row)),
+                      key=lambda i: (not np.isnan(row[i]),
+                                     0.0 if np.isnan(row[i]) else -float(row[i]), i))
+        assert got == want

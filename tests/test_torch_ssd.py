@@ -245,9 +245,9 @@ def test_serving_goes_through_the_kernel_wrapper(pair, monkeypatch):
     calls = []
     real = nms_kernel.nms_rows
     monkeypatch.setattr(nms_kernel, "nms_rows",
-                        lambda *a: calls.append(a[1].shape) or real(*a))
+                        lambda *a: calls.append((a[1].shape, a[5].shape)) or real(*a))
     pm.test_one_image(image)
-    assert calls == [(20, 512)]  # 648 anchors at 76: the 512-candidate pool
+    assert calls == [((20, 648), (20, 512))]  # 648 anchors at 76: the 512-candidate pool
 
 
 def test_save_and_load_weight_round_trip(pair, tmp_path):

@@ -1,6 +1,7 @@
 """NMS inputs shared by the port's CPU and GPU tests (numpy only, no JAX).
 
-The cases are those of tests/test_pallas_nms.py, plus a scene of tied scores.
+The cases are those of tests/test_pallas_nms.py, plus a scene of tied scores and
+a batch with a NaN score in one row (that row selects nothing).
 """
 
 import numpy as np
@@ -58,4 +59,15 @@ def nms_case(name):
         boxes = corners(rng, (2, 64), 0, 60, 5, 30)
         scores = np.round(rng.uniform(0, 1, (2, 64)), 1).astype(np.float32)
         return boxes, scores, np.asarray([64, 9], np.int32), 64, 0.3
+    if name == "nan_row":
+        rng = np.random.default_rng(17)
+        boxes = corners(rng, (300,), 0, 100, 5, 40)
+        scores = rng.uniform(0, 1, (3, 300)).astype(np.float32)
+        scores[1, 123] = np.nan
+        scores[2, rng.uniform(size=300) < 0.4] = -1e30  # holes
+        return boxes, scores, np.full(3, 50, np.int32), 50, 0.5
     raise KeyError(name)
+
+
+NAMES = ("random0", "random1", "per_row_boxes", "pretopk", "exhaustion", "zero_area",
+         "ties", "nan_row")

@@ -9,6 +9,12 @@ geometry, which carry no parameter gradient, so there is no backward.
 ``launches`` counts the calls that launched the kernel in this process;
 callers that need to show a path went through the kernel set it to 0 and read
 it back.
+
+The kernel's scratch (the per-gt argmax keys and the per-image arrival
+counters) lives here, one pair of tensors per device, grown to the largest
+call and made with ``torch.zeros``: every launch leaves it zero again, so no
+call clears it. Calls that share it must run on one stream, as the port's do
+(PyTorch's current stream).
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ launches = 0
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+_scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _library():
@@ -36,6 +44,19 @@ def _library():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def scratch(dev: torch.device, b: int, g: int):
+    """The kernel's zeroed scratch on ``dev`` for ``b`` images of ``g`` gt rows:
+    ``(keys [>= b*g] int64, arrivals [>= b] int32)``."""
+    keys, arrivals = _scratch.get(dev, (None, None))
+    if keys is None or keys.numel() < b * g or arrivals.numel() < b:
+        n_keys = max(b * g, 0 if keys is None else keys.numel())
+        n_arrivals = max(b, 0 if arrivals is None else arrivals.numel())
+        keys = torch.zeros(n_keys, dtype=torch.int64, device=dev)
+        arrivals = torch.zeros(n_arrivals, dtype=torch.int32, device=dev)
+        _scratch[dev] = (keys, arrivals)
+    return keys, arrivals
 
 
 def _check(gt_y1x1, gt_y2x2, gt_valid, a_y1x1, a_y2x2):
@@ -78,14 +99,15 @@ def _launch(gt_y1x1, gt_y2x2, gt_valid, a_y1x1, a_y2x2):
     best_iou = torch.empty((b, a), dtype=torch.float32, device=dev)
     rg = torch.empty((b, a), dtype=torch.int32, device=dev)
     best_set = torch.empty((b, a), dtype=torch.bool, device=dev)
-    keys = torch.empty((b, g), dtype=torch.int64, device=dev)  # zeroed by the C entry
+    keys, arrivals = scratch(dev, b, g)
     row_stride = 0 if a_y1x1.dim() == 2 else a * 2
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(gt_y1x1.data_ptr(), gt_y2x2.data_ptr(), gt_valid.data_ptr(),
                  a_y1x1.data_ptr(), a_y2x2.data_ptr(), row_stride, b, g, a,
-                 keys.data_ptr(), best_anchor.data_ptr(), best_iou.data_ptr(),
+                 keys.data_ptr(), arrivals.data_ptr(), best_anchor.data_ptr(),
+                 best_iou.data_ptr(),
                  rg.data_ptr(), best_set.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"assignment kernel launch failed: cudaError {err}")
