@@ -26,7 +26,21 @@ Phases, each raising on failure (nothing is caught):
      plain versions on the same head outputs; then images/s and device time in
      bf16 and fp32, a profiler breakdown of one step, and the NMS kernel's two
      designs timed in turns on that step's own mining pool (and on a request's
-     decode pool), the per-pick design at full width.
+     decode pool), the per-pick design at full width;
+  5. RetinaNet serve: the RetinaNet training driver's config
+     (``drivers/testretinanet.py``: 500x500, bottleneck [3, 4, 6, 3], 20
+     classes, 47961 anchors) in test mode, fp32, score threshold 0.01, with
+     BatchNorm statistics taken from 4 seeded images, answers 10 requests;
+     decode with the kernel == with the plain version, the network against the
+     CPU, launches by design;
+  6. RetinaNet train: the same config (batch 32, bf16, focal loss) on one fixed
+     batch through ``train_one_epoch``: one assignment launch and no NMS launch
+     a step, a finite and falling loss, ``retina_loss`` with the kernel == with
+     the plain version, images/s, ms/step, a profiled step, peak memory;
+  7. RetinaNet's ImageNet pretraining mode: 3 steps at batch 32;
+  8. both kernels at RetinaNet's shapes against their plain versions, timed:
+     the assignment at [32, 60, 47961], the decode pool at [20, 47961], and a
+     decode whose pool runs out, rerun at full width by the per-pick kernel.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -457,12 +471,8 @@ def phase_assign(dev, ssd_anchors):
 
 # --------------------------------------------------------------- serving
 def phase_serve(dev, n_requests=10):
-    import numpy as np
-    import torch
-
-    from tpudet_torch.heads import ssd as ssd_head
+    """SSD300 at full width answers requests."""
     from tpudet_torch.models.ssd import SSD300
-    from tpudet_torch.ops.cuda import nms_kernel
 
     config = {"mode": "test", "data_format": "channels_last", "num_classes": 20,
               "batch_size": 1, "weight_decay": 5e-4, "nms_score_threshold": 0.01,
@@ -475,8 +485,46 @@ def phase_serve(dev, n_requests=10):
         f"{model.anchors.yx.shape[0]} anchors")
     if model.device.type != dev.type or model.anchors.yx.shape[0] != 8828:
         raise AssertionError("SSD300 must default to the card with 8828 anchors")
+    return serve_requests(dev, model, 300, n_requests)
+
+
+def leaves(outputs):
+    """The tensors of a net's output: a list of tensors or of tuples of them."""
+    return [t for item in outputs
+            for t in (item if isinstance(item, (tuple, list)) else (item,))]
+
+
+def network_vs_cpu(model, x, outputs):
+    """The net's outputs on the card within 1e-4 of the same weights on the
+    CPU (max |diff| / max |value| per output: float32 sums in another order,
+    no TF32)."""
+    dev = x.device
+    cpu_net = model.net.to("cpu")
+    try:
+        want = cpu_net(model._preprocess(x).cpu())
+    finally:
+        model.net.to(dev)
+    worst = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                for g, w in zip(leaves(outputs), leaves(want)))
+    if worst > 1e-4:
+        raise AssertionError(f"network on the card vs the CPU: rel err {worst}")
+    log(f"network on the card vs the CPU, same weights: max |diff| / max |value| "
+        f"over outputs {worst:.2e}")
+
+
+def serve_requests(dev, model, size, n_requests, check_network=None):
+    """``n_requests`` seeded size x size images through ``test_one_image``, with
+    the NMS counts set to 0 just before and read just after; then one
+    request's decode with the kernel == with the plain version on the card,
+    the network against the same weights on the CPU (``check_network``,
+    default :func:`network_vs_cpu`), and a profile."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
     rng = np.random.default_rng(1)
-    images = [rng.uniform(0, 255, (1, 300, 300, 3)).astype(np.float32)
+    images = [rng.uniform(0, 255, (1, size, size, 3)).astype(np.float32)
               for _ in range(n_requests)]
     for img in images[:2]:  # warm-up: cuDNN handles, the kernel library
         model.test_one_image(img)
@@ -484,23 +532,27 @@ def phase_serve(dev, n_requests=10):
 
     # the main path, counted
     reset_nms_counts()
+    assign_kernel.launches = 0
     latencies, results = [], []
     for img in images:
         t = time.perf_counter()
         results.append(model.test_one_image(img))
         latencies.append((time.perf_counter() - t) * 1e3)
-    counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path}
+    counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path,
+              "assign": assign_kernel.launches}
     log(f"served {n_requests} requests; kernel launches {counts}")
-    if counts["nms_rows"] < n_requests or counts["sorted_scan"] < n_requests:
-        raise AssertionError("the serving path did not launch the NMS kernel's sorted "
-                             "scan once per request")
+    if (counts["nms_rows"] < n_requests or counts["sorted_scan"] < n_requests
+            or counts["assign"]):
+        raise AssertionError("the serving path must launch the NMS kernel's sorted scan "
+                             "once per request and no assignment")
     n_dets = [len(r[0]) for r in results]
+    n_classes = model.num_classes - 1
     for scores, boxes, cid in results:
         if not (np.isfinite(scores).all() and np.isfinite(boxes).all()):
             raise AssertionError("non-finite detections")
         if boxes.shape != (len(scores), 4) or cid.shape != scores.shape:
             raise AssertionError("malformed detections")
-        if len(cid) and not (cid.min() >= 0 and cid.max() < 20):
+        if len(cid) and not (cid.min() >= 0 and cid.max() < n_classes):
             raise AssertionError("class id out of range")
     if max(n_dets) == 0:
         raise AssertionError("no request returned detections")
@@ -520,10 +572,9 @@ def phase_serve(dev, n_requests=10):
 
     with torch.inference_mode():
         outputs = model.net(model._preprocess(x))
-        pconf, pyx, phw = (a[0] for a in ssd_head.flatten_preds(outputs, 21))
 
         def decode():
-            return ssd_head.ssd_decode(pconf, pyx, phw, model.anchors, 0.01, 0.5, 20)
+            return model._decode_outputs(outputs)
 
         nms_kernel.nms_rows = capture
         try:
@@ -544,27 +595,15 @@ def phase_serve(dev, n_requests=10):
         log(f"request breakdown (device, CUDA events): network {fwd_ms:.3f} ms, "
             f"decode {dec_ms:.3f} ms")
 
-        # the network against the same weights on the CPU
-        cpu_net = model.net.to("cpu")
-        try:
-            want = cpu_net(model._preprocess(x).cpu())
-        finally:
-            model.net.to(dev)
-        # normwise: float32 sums in another order, no TF32
-        worst = max(float((g.cpu() - w).abs().max() / w.abs().max())
-                    for g, w in zip(outputs, want))
-        if worst > 1e-4:
-            raise AssertionError(f"network on the card vs the CPU: rel err {worst}")
-        log(f"network on the card vs the CPU, same weights: max |diff| / max |value| "
-            f"over levels {worst:.2e}")
+        net_check = (check_network or network_vs_cpu)(model, x, outputs)
 
     profile_requests(model, images[:3])
     boxes, scores, ns, max_out, thr, order = captured["args"]
     log(f"main-path NMS input: scores {tuple(scores.shape)}, boxes "
         f"{tuple(boxes.shape)}, the pool's order {tuple(order.shape)}, max_out "
         f"{max_out}, thr {thr}")
-    return dict(latencies=latencies, p50=p50, counts=counts,
-                kernel_args=captured["args"])
+    return dict(latencies=latencies, p50=p50, counts=counts, network_ms=fwd_ms,
+                decode_ms=dec_ms, network_vs_cpu=net_check, kernel_args=captured["args"])
 
 
 def reset_nms_counts():
@@ -613,6 +652,15 @@ class StepLog:
         self.losses.append(loss)
 
 
+def feed(batch, n_steps, b):
+    """A data provider that yields ``batch`` for an epoch of ``n_steps``."""
+    def batches():
+        while True:
+            yield batch
+
+    return {"num_train": b * n_steps, "train_generator": (lambda: None, batches())}
+
+
 def train_model(dev, compute_dtype, images, gt, n_steps):
     from tpudet_torch.models.ssd import SSD300
 
@@ -621,15 +669,7 @@ def train_model(dev, compute_dtype, images, gt, n_steps):
               "nms_score_threshold": 0.5, "nms_max_boxes": 20,
               "nms_iou_threshold": 0.5, "pretraining_weight": None,
               "compute_dtype": compute_dtype, "hard_neg_cap": 384, "seed": 0}
-
-    def batches():
-        while True:
-            yield images, gt
-
-    provider = {"data_shape": [300, 300, 3], "num_train": TRAIN_BATCH * n_steps,
-                "num_val": 0, "train_generator": (lambda: None, batches()),
-                "val_generator": None}
-    model = SSD300(config, provider)
+    model = SSD300(config, feed((images, gt), n_steps, TRAIN_BATCH))
     if model.device.type != dev.type:
         raise AssertionError("SSD300 must default to the card")
     return model
@@ -741,7 +781,7 @@ def profile_step(model, images, gt):
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     if not by_name:
         log("profiler: no device events recorded")
-        return
+        return dict(wall_ms=wall_ms, busy_ms=None)
     busy = sum(by_name.values())
     log(f"profiler over one train step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%), {len(by_name)} distinct kernels")
@@ -750,6 +790,7 @@ def profile_step(model, images, gt):
     for part in ("assign_kernel", "nms_mask_kernel", "nms_scan_kernel", "nms_rows_kernel"):
         ms = sum(v for k, v in by_name.items() if part in k)
         log(f"  {part}: {ms:.4f} ms/step ({100 * ms / busy:.2f}% of device busy)")
+    return dict(wall_ms=wall_ms, busy_ms=busy)
 
 
 def phase_train(dev, n_steps=10, warmup=2):
@@ -906,6 +947,302 @@ def assign_timing(args):
                 bound_by=b_by)
 
 
+# --------------------------------------------------------------- RetinaNet
+# the RetinaNet training driver's config (drivers/testretinanet.py)
+RETINA_CONFIG = {
+    "is_bottleneck": True, "residual_block_list": [3, 4, 6, 3],
+    "init_conv_filters": 16, "mode": "train", "is_pretraining": False,
+    "data_shape": [500, 500, 3], "num_classes": 20, "weight_decay": 1e-4,
+    "keep_prob": 0.5, "data_format": "channels_last", "batch_size": 32,
+    "gamma": 2.0, "alpha": 0.25, "nms_score_threshold": 0.8, "nms_max_boxes": 10,
+    "nms_iou_threshold": 0.45, "compute_dtype": "bfloat16", "seed": 0}
+RETINA_SIZE = 500
+RETINA_ANCHORS = 47961
+RETINA_PARAMS = 31273138
+PRETRAIN_SIZE = 224  # ImageNet crops
+PRETRAIN_CLASSES = 224  # the last stage's width: the pretraining logits
+
+
+def retina_model(dev, provider=None, **overrides):
+    from tpudet_torch.models import RetinaNet
+
+    t0 = time.perf_counter()
+    model = RetinaNet(dict(RETINA_CONFIG, **overrides), provider)
+    if model.device.type != dev.type:
+        raise AssertionError("RetinaNet must default to the card")
+    n_params = sum(p.numel() for p in model.net.parameters())
+    what = "pretraining" if model.is_pretraining else f"{model.anchors.yx.shape[0]} anchors"
+    dtype = overrides.get("compute_dtype", RETINA_CONFIG["compute_dtype"])
+    log(f"RetinaNet ({model.mode}, {dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, {what}")
+    if not model.is_pretraining and RETINA_SIZE == 500 and (
+            n_params != RETINA_PARAMS or model.anchors.yx.shape[0] != RETINA_ANCHORS):
+        raise AssertionError("RetinaNet at the driver's config must have "
+                             f"{RETINA_PARAMS} parameters and {RETINA_ANCHORS} anchors")
+    return model
+
+
+def calibrate_batchnorm(model, images):
+    """Set every BatchNorm's running statistics to those of one batch of
+    ``images``, as training leaves them. With random weights and the initial
+    statistics (mean 0, var 1) the 16 pre-activation residual units add up:
+    RetinaNet's eval-mode head outputs reach ~5e4, the softmax is 0 or 1 and
+    the decoded boxes overflow."""
+    import torch
+
+    from tpudet_torch.nn.layers import BatchNorm
+
+    def take_stats(bn, args):
+        x = args[0].float()
+        dims = [0, *range(2, x.dim())]
+        mean = torch.mean(x, dims)
+        bn.mean.copy_(mean)
+        bn.var.copy_(torch.clamp(torch.mean(x * x, dims) - mean * mean, min=0.0))
+
+    hooks = [m.register_forward_pre_hook(take_stats) for m in model.net.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model.net.eval()(model._preprocess(model._images_to_device(images)))
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def retina_network_vs_cpu(model, x, outputs):
+    """RetinaNet's net on the card against the same weights on the CPU.
+
+    With random weights the eval-mode net amplifies a perturbation ~1.25x a
+    convolution, over ~75 of them: two summation orders on the CPU itself
+    (oneDNN's convolutions and PyTorch's own) differ by ~1.5e-3 at the heads.
+    So the backbone's stride-8 output C3 (20 convolutions deep) is held to
+    1e-4, and the heads to 4x the CPU's own difference between its two
+    orders, both normwise (|diff|_2 / |value|_2)."""
+    import torch
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got.cpu() - want)
+                     / torch.linalg.vector_norm(want))
+
+    dev = x.device
+    xin = model._preprocess(x)
+    c3_card = model.net.feature_extractor.backbone(xin)[0]
+    cpu_net = model.net.to("cpu")
+    try:
+        c3_cpu = cpu_net.feature_extractor.backbone(xin.cpu())[0]
+        want = leaves(cpu_net(xin.cpu()))
+        with torch.backends.mkldnn.flags(enabled=False):
+            other = leaves(cpu_net(xin.cpu()))
+    finally:
+        model.net.to(dev)
+    c3_err = rel(c3_card, c3_cpu)
+    card_err = max(rel(g, w) for g, w in zip(leaves(outputs), want))
+    cpu_err = max(rel(g, w) for g, w in zip(other, want))
+    log(f"network on the card vs the CPU, same weights, normwise: C3 {c3_err:.2e}; "
+        f"heads {card_err:.2e}, against {cpu_err:.2e} between the CPU's two "
+        f"summation orders")
+    if c3_err > 1e-4 or card_err > max(1e-4, 4 * cpu_err):
+        raise AssertionError(f"network on the card vs the CPU: C3 {c3_err}, heads "
+                             f"{card_err} (CPU orders {cpu_err})")
+    return dict(c3=c3_err, heads=card_err, cpu_orders=cpu_err)
+
+
+def phase_retina_serve(dev, n_requests=10):
+    """RetinaNet at the driver's config, fp32 (TF32 off), score threshold 0.01
+    (random weights put the softmax near 1/21, under the driver's 0.8), with
+    the BatchNorm statistics of 4 seeded images."""
+    import numpy as np
+
+    model = retina_model(dev, mode="test", compute_dtype="float32",
+                         nms_score_threshold=0.01)
+    rng = np.random.default_rng(9)
+    calibrate_batchnorm(model, rng.uniform(0, 255, (4, RETINA_SIZE, RETINA_SIZE, 3))
+                        .astype(np.float32))
+    return serve_requests(dev, model, RETINA_SIZE, n_requests, retina_network_vs_cpu)
+
+
+def retina_batch(seed, b, size):
+    """One fixed batch: seeded uniform images, 1-10 VOC-like boxes an image
+    padded to 60 rows."""
+    import numpy as np
+    from torch_assign_cases import rand_gt
+
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 255, (b, size, size, 3)).astype(np.float32)
+    return images, rand_gt(rng, b, 60, 10, size=float(size), n_valid_min=1)
+
+
+def retina_loss_kernel_vs_plain(model, images, gt):
+    """On the same head outputs of one step: retina_loss with the assignment
+    kernel == with its plain version, exactly. Returns the kernel's input."""
+    import torch
+
+    from tpudet_torch.heads import retina as retina_head
+    from tpudet_torch.ops import matching
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    x, g = model._to_device(images, gt)
+    model.net.train()
+    with torch.no_grad():
+        heads = retina_head.flatten_preds(model.net(model._preprocess(x)),
+                                          model.num_classes)
+
+    def loss():
+        return retina_head.retina_loss(*heads, model.anchors, g, model.num_classes,
+                                       model.alpha, model.gamma)
+
+    captured = {}
+    real = assign_kernel.assign_anchors
+
+    def assign(*a):
+        captured.setdefault("assign", a)
+        return real(*a)
+
+    try:
+        assign_kernel.assign_anchors = assign
+        with_kernel = loss()
+        assign_kernel.assign_anchors = matching.assign_plain
+        with_plain = loss()
+    finally:
+        assign_kernel.assign_anchors = real
+    torch.cuda.synchronize()
+    if not torch.equal(with_kernel, with_plain):
+        raise AssertionError(f"retina_loss with the kernel {float(with_kernel)} != with "
+                             f"the plain version {float(with_plain)}")
+    log(f"retina_loss on one step's head outputs: kernel == plain version on the card "
+        f"({float(with_kernel):.6f})")
+    return captured["assign"]
+
+
+def phase_retina_train(dev, n_steps=10, warmup=2):
+    """The driver's config: batch 32, bf16, trained through train_one_epoch on
+    one fixed batch; one assignment launch and no NMS launch a step."""
+    import numpy as np
+    import torch
+
+    images, gt = retina_batch(4, TRAIN_BATCH, RETINA_SIZE)
+    log(f"RetinaNet train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = retina_model(dev, feed((images, gt), n_steps, TRAIN_BATCH),
+                         batch_size=TRAIN_BATCH)
+    run = run_epoch(model, images, gt, warmup)
+    counts, steps, losses = run["counts"], run["steps"], run["losses"]
+    log(f"RetinaNet bf16: {warmup} warm-up steps + {steps} in train_one_epoch; kernel "
+        f"launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
+    if steps != n_steps or counts["assign"] != steps or counts["nms_rows"] != 0:
+        raise AssertionError(f"the RetinaNet train path must launch the assignment kernel "
+                             f"once a step and no NMS: {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    # the focal loss starts near 1.7e3 here (every class at ~1/21, ~47k
+    # negatives over a few dozen positives): the first step takes it to tens,
+    # then the momentum of that first gradient carries the weights on at lr
+    # 0.01 and the loss climbs again, as tpudet's does
+    # (tests/torch_retina_trajectory.py)
+    if not (losses[1] < losses[0] and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall on one batch: {losses}")
+    log(f"RetinaNet bf16 train: {run['images_per_s']:.1f} images/s by the host clock, "
+        f"{run['step_ms']:.3f} ms/step by CUDA events, epoch mean {run['mean']:.4f}")
+    assign_args = retina_loss_kernel_vs_plain(model, images, gt)
+    prof = profile_step(model, images, gt)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    run["profile"] = prof
+    log(f"RetinaNet peak device memory {run['peak_gib']:.2f} GiB (bf16 training)")
+    del model
+    torch.cuda.empty_cache()
+    return dict(run=run, assign_args=assign_args)
+
+
+def phase_retina_pretrain(dev, n_steps=3):
+    """The ImageNet pretraining mode: batch 32 of 224x224 crops, integer
+    labels below the last stage's width."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    images = rng.uniform(0, 255, (TRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_SIZE, 3)).astype(
+        np.float32)
+    labels = rng.integers(0, PRETRAIN_CLASSES, TRAIN_BATCH)
+    model = retina_model(dev, feed((images, labels), n_steps, TRAIN_BATCH),
+                         batch_size=TRAIN_BATCH, is_pretraining=True,
+                         data_shape=[PRETRAIN_SIZE, PRETRAIN_SIZE, 3])
+    writer = StepLog()
+    loss, acc = model.train_one_epoch(0.01, writer)
+    losses = [float(x) for x in writer.losses]
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"pretraining losses: {losses}")
+    pred = model.test_one_image(images[:1])
+    if pred.shape != (1,) or not 0 <= int(pred[0]) < PRETRAIN_CLASSES:
+        raise AssertionError(f"pretraining prediction {pred}")
+    log(f"RetinaNet pretraining: {n_steps} steps at batch {TRAIN_BATCH}, losses "
+        f"{[round(x, 4) for x in losses]}, mean accuracy {acc:.4f}; "
+        f"test_one_image -> class {int(pred[0])}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(losses=losses, acc=acc)
+
+
+def phase_retina_kernels(dev, serve_args, assign_args):
+    """Both kernels at RetinaNet's shapes against their plain versions, timed:
+    the assignment at [32, 60, 47961], the decode pool at [20, 47961], and a
+    decode whose pool runs out (``torch_nms_cases.retina_decode_case``: row
+    0's top 512 are near-copies of one box, the quota is 10) and reruns the
+    rows at full width."""
+    import torch
+    from torch_nms_cases import retina_decode_case
+
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    out = {}
+    assign = assign_timing(assign_args)
+    if not scratch_is_zero(dev):
+        raise AssertionError("assignment kernel left its scratch non-zero at RetinaNet's "
+                             "shape")
+    # the profiler may miss the first kernel of a session, so: nothing but
+    # the kernel, and at most one operation a call
+    ops = [name for name, _ in device_events(lambda: assign_kernel.assign_anchors(
+        *assign_args), reps=5)]
+    if not 0 < len(ops) <= 5 or not all("assign_kernel" in op for op in ops):
+        raise AssertionError(f"five assignment calls put {ops} on the stream")
+    log(f"assign at RetinaNet's shape {tuple(assign_args[2].shape)} x "
+        f"{assign_args[3].shape[0]} anchors: kernel == plain (best_iou bit for bit), "
+        f"one device operation, scratch zero; kernel {assign['ms']:.4f} ms (device time "
+        f"{assign['device_ms']:.4f} ms), plain {assign['plain_ms']:.4f} ms, bound "
+        f"{assign['bound_ms']:.6f} ms ({assign['bound_by']})")
+    out["assign"] = assign
+
+    pool = nms_pool_timing(serve_args)
+    log_pool("RetinaNet's decode pool", pool)
+    out["decode_pool"] = pool
+
+    anchors = torch.cat([assign_args[3], assign_args[4]], -1).cpu().numpy()
+    case = retina_decode_case(anchors, run_out=True)
+    args = [torch.from_numpy(a).to(dev) for a in case[:3]] + list(case[3:])
+    before = dict(nms_kernel.launches_by_path)
+    sel, val = nms_kernel.batched_greedy_nms_pretopk(*args)
+    reran = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    want = nms_ops.batched_greedy_nms(*args)
+    torch.cuda.synchronize()
+    if reran != {"sorted_scan": 1, "per_pick": 1}:
+        raise AssertionError(f"run-out case: expected the pool's sorted scan, then the "
+                             f"full-width rerun, got {reran}")
+    if not nms_equal((sel, val), want):
+        raise AssertionError("run-out case: pool with its rerun != plain version")
+    if int(val[0].sum()) < 2:
+        raise AssertionError("run-out case: row 0 must pick beyond its pool")
+    full = nms_full_timing(args)
+    log(f"NMS run-out case {tuple(args[1].shape)}: the pool ran out in row 0, the "
+        f"per-pick kernel reran at full width, == plain ({int(val.sum())} picks, row 0 "
+        f"{int(val[0].sum())}); per-pick at full width "
+        f"{[round(x, 4) for x in full['turns_ms']]} ms (device time "
+        f"{full['device_ms']:.4f} ms), plain {full['plain_ms']:.4f} ms, bound "
+        f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
+    out["full_width"] = full
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -969,6 +1306,21 @@ def main() -> int:
         f"{assign['plain_ms']:.4f} ms, bound {assign['bound_ms']:.6f} ms "
         f"({assign['bound_by']})")
 
+    # 5-8. RetinaNet: serve, train, pretrain, both kernels at its shapes
+    r_serve = phase_retina_serve(dev, n_requests)
+    r_train = phase_retina_train(dev)
+    r_pre = phase_retina_pretrain(dev)
+    r_kern = phase_retina_kernels(dev, r_serve["kernel_args"], r_train["assign_args"])
+    r_run, r_counts = r_train["run"], r_train["run"]["counts"]
+    r_steps = r_run["steps"]
+
+    log(json.dumps({"retinanet": {
+        "serve_p50_ms": r_serve["p50"], "serve_ms": r_serve["latencies"],
+        "serve_counts": r_serve["counts"], "network_ms": r_serve["network_ms"],
+        "decode_ms": r_serve["decode_ms"], "network_vs_cpu": r_serve["network_vs_cpu"],
+        "train_bf16": {k: r_run[k] for k in ("images_per_s", "step_ms", "losses",
+                                             "counts", "peak_gib", "profile")},
+        "pretrain_losses": r_pre["losses"], "kernels": r_kern}}))
     log(json.dumps({"shapes": timings, "serve_p50_ms": serve["p50"],
                     "serve_ms": serve["latencies"],
                     "train_bf16": {k: train["bf16"][k] for k in
@@ -980,7 +1332,8 @@ def main() -> int:
     records = [
         {"name": "nms_rows", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
          "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
-         "launches": serve["counts"]["nms_rows"] + counts["nms_rows"],
+         "launches": (serve["counts"]["nms_rows"] + counts["nms_rows"]
+                      + r_serve["counts"]["nms_rows"] + r_counts["nms_rows"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -1011,16 +1364,34 @@ def main() -> int:
                  "full_width_device_ms": mine_full["device_ms"],
                  "full_width_plain_ms": mine_full["plain_ms"],
                  "full_width_bound_ms": mine_full["bound_ms"],
-                 "full_width_bound_by": mine_full["bound_by"]}}},
+                 "full_width_bound_by": mine_full["bound_by"]}},
+         "retinanet": {
+             "launches": r_serve["counts"]["nms_rows"] + r_counts["nms_rows"],
+             "launches_per_request": r_serve["counts"]["nms_rows"] / n_requests,
+             "launches_per_step": r_counts["nms_rows"] / r_steps,
+             "launches_by_path": {k: r_serve["counts"][k]
+                                  for k in ("sorted_scan", "per_pick")},
+             "decode_pool": {k: r_kern["decode_pool"][k] for k in (
+                 "ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
+                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")},
+             "run_out_full_width": {k: r_kern["full_width"][k] for k in (
+                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks",
+                 "shape")}}},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
-         "launches": counts["assign"], "launches_per_request": 0.0,
+         "launches": counts["assign"] + r_counts["assign"],
+         "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
          "ms": assign["ms"], "device_ms": assign["device_ms"],
          "plain_ms": assign["plain_ms"],
          "bound_ms": assign["bound_ms"], "bound_by": assign["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "retinanet": {
+             "launches": r_counts["assign"], "launches_per_step": r_counts["assign"] / r_steps,
+             "launches_per_request": r_serve["counts"]["assign"] / n_requests,
+             **{k: r_kern["assign"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")}}},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -11,15 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from tpudet_torch.heads import retina as t_retina
 from tpudet_torch.heads import ssd as t_ssd
+from tpudet_torch.models.retinanet import pyramid_shapes
 from tpudet_torch.models.ssd import SSD300, _ssd_feat_shapes
 from tpudet_torch.ops import matching as t_matching
 from tpudet_torch.ops import nms as t_nms
 from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 from torch_assign_cases import CASES as ASSIGN_CASES
-from torch_assign_cases import assign_case, voc_like_gt
+from torch_assign_cases import assign_case, rand_gt, voc_like_gt
 from torch_nms_cases import NAMES as CASES
-from torch_nms_cases import nms_case
+from torch_nms_cases import nms_case, retina_decode_case
 
 
 @pytest.fixture
@@ -64,10 +66,19 @@ def test_cuda_wrapper_rejects_wrong_dtypes(cuda_device):
                             torch.zeros(2, dtype=torch.int32, device=cuda_device), 4, 0.5)
 
 
+def _retina_anchors():
+    """RetinaNet's 47961 anchors at 500x500."""
+    return t_retina.build_anchors(500, pyramid_shapes(500, 500, 4))
+
+
 def _assign_inputs(name):
     if name == "ssd300":
         anc = t_ssd.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides))
         gt, ay1, ay2 = voc_like_gt(0), anc.y1x1.numpy(), anc.y2x2.numpy()
+    elif name == "retinanet":  # [32, 60] gts over 47 blocks of anchors an image
+        anc = _retina_anchors()
+        gt = rand_gt(np.random.default_rng(4), 32, 60, 10, size=500.0, n_valid_min=1)
+        ay1, ay2 = anc.y1x1.numpy(), anc.y2x2.numpy()
     else:
         gt, ay1, ay2 = assign_case(name)
     g = t_matching.unpack_gt(torch.from_numpy(gt))
@@ -76,7 +87,7 @@ def _assign_inputs(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ASSIGN_CASES + ("ssd300",))
+@pytest.mark.parametrize("name", ASSIGN_CASES + ("ssd300", "retinanet"))
 def test_assign_kernel_equals_plain(cuda_device, name):
     """Exact: indices and flags equal, best_iou equal bit for bit."""
     cpu = _assign_inputs(name)
@@ -120,3 +131,26 @@ def test_assign_wrapper_rejects_wrong_dtypes_and_devices(cuda_device):
         assign_kernel.assign_anchors(*args[:3], args[3].double(), args[4].double())
     with pytest.raises(ValueError, match="different devices"):
         assign_kernel.assign_anchors(*args[:3], args[3].cpu(), args[4].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_out", [False, True])
+def test_retina_decode_pool_equals_plain(cuda_device, run_out):
+    """RetinaNet's decode shape [20, 47961] through the pool: the sorted scan on
+    the pool; with ``run_out`` row 0 exhausts its pool and the rows rerun at
+    full width through the per-pick kernel. Equal to the plain version."""
+    anc = _retina_anchors()
+    corners = torch.cat([anc.y1x1, anc.y2x2], -1).numpy()
+    boxes, scores, ns, max_out, thr = retina_decode_case(corners, run_out)
+    cpu = [torch.from_numpy(a) for a in (boxes, scores, ns)]
+    want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
+    before = dict(nms_kernel.launches_by_path)
+    sel, val = nms_kernel.batched_greedy_nms_pretopk(
+        *(t.to(cuda_device) for t in cpu), max_out, thr)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    assert used == {"sorted_scan": 1, "per_pick": 1 if run_out else 0}
+    np.testing.assert_array_equal(val.cpu().numpy(), want[1].numpy())
+    np.testing.assert_array_equal(sel.cpu().numpy(), want[0].numpy())
+    if run_out:
+        assert int(want[1][0].sum()) > 1  # row 0 picks beyond its pool

@@ -71,3 +71,21 @@ def nms_case(name):
 
 NAMES = ("random0", "random1", "per_row_boxes", "pretopk", "exhaustion", "zero_area",
          "ties", "nan_row")
+
+
+def retina_decode_case(anchor_corners, run_out=False, pool=512):
+    """RetinaNet's decode shape: 20 classes over its shared anchors (47961 at
+    500x500), quota 10, IoU 0.45. With ``run_out``, row 0's top ``pool`` + 8
+    candidates are near-copies of one box, so the pre-top-k pool runs out
+    after its first pick and the rows rerun at full width."""
+    rng = np.random.default_rng(19)
+    boxes = np.array(anchor_corners, np.float32)
+    n = boxes.shape[0]
+    scores = rng.uniform(0, 1, (20, n)).astype(np.float32)
+    scores[rng.uniform(size=scores.shape) < 0.3] = -1e30
+    if run_out:
+        idx = rng.permutation(n)[:pool + 8]
+        boxes[idx] = np.asarray([100, 100, 200, 220], np.float32) + np.linspace(
+            0, 0.5, pool + 8, dtype=np.float32)[:, None]
+        scores[0, idx] = 2.0 + np.linspace(1, 0, pool + 8, dtype=np.float32)
+    return boxes, scores, np.full(20, 10, np.int32), 10, 0.45

@@ -26,6 +26,7 @@ from tpudet_torch import device as device_lib
 from tpudet_torch.runtime import checkpoint as ckpt
 from tpudet_torch.runtime import config as config_lib
 from tpudet_torch.runtime import optim
+from tpudet_torch.runtime import transfer
 
 _FEED = "ROADMAP.md queue 1, the device-resident feed"
 UNPORTED_KEYS = {
@@ -125,21 +126,29 @@ class DetectorBase:
         return None
 
     # ------------------------------------------------------------ training
-    def _to_device(self, images, gt):
-        """numpy ``images`` (NHWC, or NCHW for channels_first) and ``gt [B, G, 5]``
-        -> float32 NCHW images and float32 gt on ``self.device``. The layout
-        change and the cast to float32 happen on the device."""
-        if not isinstance(images, np.ndarray) or not isinstance(gt, np.ndarray):
+    def _images_to_device(self, images, dtype=None):
+        """numpy ``images`` (NHWC, or NCHW for channels_first) -> float32 NCHW
+        images on ``self.device``, sent as ``dtype`` (default ``input_dtype``).
+        The layout change and the cast to float32 happen on the device."""
+        if not isinstance(images, np.ndarray):
             raise NotImplementedError(
                 f"the feed must yield numpy batches; device-resident feeds are not "
                 f"ported yet ({_FEED})")
-        x = torch.from_numpy(np.ascontiguousarray(images, self.input_dtype))
+        x = torch.from_numpy(np.ascontiguousarray(images, dtype or self.input_dtype))
         x = x.to(self.device)
         if self.data_format == "channels_last":
             x = x.permute(0, 3, 1, 2)
-        x = x.to(torch.float32, memory_format=torch.contiguous_format)
+        return x.to(torch.float32, memory_format=torch.contiguous_format)
+
+    def _to_device(self, images, gt):
+        """numpy ``images`` and ``gt [B, G, 5]`` -> float32 NCHW images and
+        float32 gt on ``self.device``."""
+        if not isinstance(gt, np.ndarray):
+            raise NotImplementedError(
+                f"the feed must yield numpy batches; device-resident feeds are not "
+                f"ported yet ({_FEED})")
         gt = torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(self.device)
-        return x, gt
+        return self._images_to_device(images), gt
 
     def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
         """One step on a device batch: forward in train mode (which updates the
@@ -213,13 +222,27 @@ class DetectorBase:
         print("save", mode, "model in", fname, "successfully")
 
     def load_weight(self, path: str):
-        blob = ckpt.load_state(path, map_location=self.device)
-        self.net.load_state_dict(blob["state_dict"], strict=True)
-        if self.velocity is not None and blob.get("velocity"):
-            if blob["velocity"].keys() != self.velocity.keys():
+        """Restore the net, the velocity (training) and ``global_step`` from a
+        checkpoint of the port's (``.pt``) or of tpudet's ``save_weight``
+        (``.tpudet``: ``params`` and ``batch_stats`` go through
+        ``transfer.from_flax``, ``opt_state.velocity`` through
+        ``transfer.velocity_from_flax``). ``path`` is a file, a ``path-step``
+        prefix or a bare prefix (the newest step)."""
+        fname = ckpt.resolve(path)
+        blob = ckpt.load_state(fname, map_location=self.device)
+        if fname.endswith(ckpt.TPUDET_SUFFIX):
+            state = transfer.from_flax({"params": blob["params"],
+                                        "batch_stats": blob.get("batch_stats", {})})
+            velocity = (blob.get("opt_state") or {}).get("velocity")
+            velocity = transfer.velocity_from_flax(velocity) if velocity else None
+        else:
+            state, velocity = blob["state_dict"], blob.get("velocity")
+        self.net.load_state_dict(state, strict=True)
+        if self.velocity is not None and velocity:
+            if velocity.keys() != self.velocity.keys():
                 raise KeyError("the checkpoint's velocity does not match the net's "
                                "parameters")
-            for k, v in blob["velocity"].items():
+            for k, v in velocity.items():
                 self.velocity[k].copy_(v)
         self.global_step = int(blob.get("global_step", 0))
-        print("load weight", path, "successfully")
+        print("load weight", fname, "successfully")

@@ -161,6 +161,80 @@ class ConvBN(nn.Module):
         return self.activation(x) if self.activation is not None else x
 
 
+class BNActConv(nn.Module):
+    """Pre-activation unit: BatchNorm -> activation -> SAME conv(+bias).
+
+    The conv kernel is flax's ``variance_scaling(2.0, "fan_in",
+    "truncated_normal")``, drawn from the caller's generator; the bias is 0, or
+    ``bias_init_const`` (RetinaNet's class-prediction prior
+    ``-log((1-pi)/pi)``). BatchNorm returns its input's dtype and the conv
+    casts to ``dtype`` right after, so a float32 input (the FPN's top-down
+    sums) gives the same values as flax's BatchNorm(dtype=bfloat16) there.
+    """
+
+    def __init__(self, in_ch: int, filters: int, kernel: int, stride: int = 1,
+                 activation: Optional[Callable] = torch.relu,
+                 bias_init_const: Optional[float] = None, norm: str = "bn",
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if norm != "bn":
+            raise NotImplementedError(
+                f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, FCOS: the "
+                f"GroupNorm ResNet)")
+        self.bn = BatchNorm(in_ch)
+        self.activation = activation
+        self.conv = SameConv2d(in_ch, filters, kernel, stride, generator=generator,
+                               dtype=dtype)
+        with torch.no_grad():
+            std = math.sqrt(2.0 / (in_ch * kernel * kernel)) / TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(self.conv.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if bias_init_const is not None:
+                self.conv.bias.fill_(bias_init_const)
+
+    def forward(self, x):
+        x = self.bn(x)
+        if self.activation is not None:
+            x = self.activation(x)
+        return self.conv(x)
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``tf.image.resize_bilinear`` with ``align_corners=False`` in TF1's rule,
+    which has no half-pixel offset: ``src = dst * (in / out)``, on NCHW ``x``.
+
+    The source positions and weights are float32 and the lerp multiplies the
+    gathered values by them, so a bfloat16 input gives a float32 output, as
+    in tpudet (bf16 times float32 promotes). Same size returns ``x`` itself.
+    ``F.interpolate(align_corners=False)`` is another function (half-pixel).
+    """
+    h, w = x.shape[-2:]
+    if (h, w) == (out_h, out_w):
+        return x
+    dev = x.device
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev) * torch.tensor(
+        h / out_h, dtype=torch.float32)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev) * torch.tensor(
+        w / out_w, dtype=torch.float32)
+    y0 = torch.clamp(torch.floor(ys), 0, h - 1).long()
+    x0 = torch.clamp(torch.floor(xs), 0, w - 1).long()
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    wy = (ys - y0.float())[:, None]
+    wx = xs - x0.float()
+    # index_select, not x[..., idx]: its backward is an index_add, where
+    # advanced indexing's sorts the indices first
+    rows0, rows1 = x.index_select(-2, y0), x.index_select(-2, y1)
+    top = rows0.index_select(-1, x0) * (1 - wx) + rows0.index_select(-1, x1) * wx
+    bot = rows1.index_select(-1, x0) * (1 - wx) + rows1.index_select(-1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
 class L2NormScale(nn.Module):
     """L2 normalisation over channels (norm clamped at 1e-12) times ONE learned
     scalar ``scale`` of shape ``[1]``.

@@ -11,7 +11,8 @@ leaf by the port's module names, which are flax's:
 
 A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
 missing or extra key, or a shape that differs, raises too.
-:func:`velocity_from_flax` renames tpudet's Momentum state the same way.
+:func:`velocity_from_flax` renames tpudet's Momentum state the same way, and
+:func:`subtree` cuts one module's entries out of a ``state_dict``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if kind not in _LEAVES:
                 raise KeyError(f"no port counterpart for flax leaf "
                                f"{collection}/{'/'.join(path)}")
+            if isinstance(leaf, torch.Tensor):  # a bfloat16 leaf of a .tpudet file
+                leaf = leaf.float().numpy()
             arr = np.asarray(leaf, np.float32)
             name = ".".join(path)
             if path[-1] == "kernel":
@@ -73,3 +76,13 @@ def velocity_from_flax(velocity: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     as numpy arrays) -> the port's velocity dict, keyed like
     ``named_parameters()``; HWIO kernels become OIHW."""
     return from_flax({"params": velocity})
+
+
+def subtree(state: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries of ``state`` under the module ``prefix`` (dotted), with the
+    prefix cut off; raises if there are none."""
+    head = prefix + "."
+    out = {k[len(head):]: v for k, v in state.items() if k.startswith(head)}
+    if not out:
+        raise KeyError(f"no entries under {prefix!r}")
+    return out
