@@ -40,7 +40,19 @@ Phases, each raising on failure (nothing is caught):
   7. RetinaNet's ImageNet pretraining mode: 3 steps at batch 32;
   8. both kernels at RetinaNet's shapes against their plain versions, timed:
      the assignment at [32, 60, 47961], the decode pool at [20, 47961], and a
-     decode whose pool runs out, rerun at full width by the per-pick kernel.
+     decode whose pool runs out, rerun at full width by the per-pick kernel;
+  9. RefineDet320 and PFPNet-R at their training scripts' config
+     (``drivers/testrefinedet.py``, ``drivers/testpfpnet.py``: 320x320, 20
+     classes, 6375 anchors), each in turn: serve 10 fp32 requests at score
+     threshold 0.01 (decode with the kernel == with the plain version, the
+     network against the CPU, one NMS launch and no assignment a request);
+     train 12 bf16 steps at batch 32 (2 warm-up, then ``train_one_epoch``; lr
+     1e-4 and 1e-3) on one fixed batch: a finite, falling loss, one
+     assignment and one or two NMS launches a step, ``refine_loss`` with the
+     kernels == with the plain versions on one step's head outputs; then both
+     kernels at the family's shapes, timed: the assignment at [32, 60, 6375],
+     the mining pool [32, 768] of [32, 6375] and the decode pool [20, 512] of
+     [20, 6375].
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -67,6 +79,8 @@ IOU_FLOPS = 18  # per candidate per pick: 4 min/max, 4 sub, 2 clamp, 2 mul, add,
 # div, and the two running-argmax compares
 ASSIGN_PAIR_FLOPS = 15
 TRAIN_BATCH = 32
+PROFILE_PAD_S = 0.01  # host pause at each end of a kernel's profiler session
+PROFILE_SESSIONS = 3  # profiler sessions tried before a device time is "not measured"
 
 
 def log(msg):
@@ -156,32 +170,56 @@ def nms_work(boxes, scores, sel, valid, iou_threshold):
     return nbytes, flops
 
 
-def device_events(fn, reps=1) -> list:
+def device_events(fn, reps=1, sessions=PROFILE_SESSIONS) -> list:
     """``(name, us)`` of every device operation (kernel, memset, copy) that
     ``reps`` calls of ``fn`` put on the stream, from torch.profiler (CUPTI),
-    after one call outside the profile."""
+    after one call outside the profile.
+
+    The profiler drops device operations that fall outside its capture
+    window, and it has returned none at all for sessions shorter than a
+    millisecond (one 12 us assignment call; twenty 10 us NMS scans). So the
+    calls sit between two host pauses of ``PROFILE_PAD_S`` inside the
+    session, and a session that records no device operation is run again, up
+    to ``sessions`` times; an empty list means every session came back
+    empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        log(f"profiler: a session of {reps} calls recorded no device operation")
+    return []
 
 
-def device_ms(fn, reps=20) -> float:
+def device_ms(fn, reps=20) -> float | None:
     """Device time of one call of ``fn``: its device operations' summed
-    durations, mean over ``reps`` calls. Unlike ``event_ms`` it leaves out the
+    durations, mean over ``reps`` calls; None ("not measured") when every
+    profiler session came back empty. Unlike ``event_ms`` it leaves out the
     gaps between launches, so it does not rise to the host's launch rate for
     short kernels."""
     us = sum(t for _, t in device_events(fn, reps))
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    return us / 1e3 / reps if us > 0 else None
+
+
+def fmt_ms(ms, digits=5) -> str:
+    """A time for the log; "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
+def mean_ms(*ms):
+    """The mean of measured times; None if any was not measured."""
+    return None if None in ms else sum(ms) / len(ms)
 
 
 def per_pick_launch(boxes, scores, ns, max_out, thr):
@@ -293,22 +331,28 @@ def phase_kernels(dev, anchor_corners):
             f"kernel == plain through nms_rows ({nms_kernel.scan_path(scores.shape[1])}), "
             f"the per-pick design and the pool; launches by design {used}; "
             f"{int(n_picks.sum())} picks")
-        if name in ("decode_pool", "mining"):
-            ms = event_ms(per_pick_launch(*args, max_out, thr), 200)
-            sorted_ms = None
+        if name in ("decode_pool", "mining", "per_row_boxes"):
+            per_pick = per_pick_launch(*args, max_out, thr)
+            ms, pp_device = event_ms(per_pick, 200), device_ms(per_pick)
+            sorted_ms = sorted_device = None
             if nms_kernel.scan_path(scores.shape[1]) == "sorted_scan":
                 order = nms_kernel.stable_order(args[1])
-                sorted_ms = event_ms(sorted_launch(*args, max_out, thr, order), 200)
+                scan = sorted_launch(*args, max_out, thr, order)
+                sorted_ms, sorted_device = event_ms(scan, 200), device_ms(scan)
             wrapped = event_ms(lambda: nms_kernel.nms_rows(*args, max_out, thr), 50)
             plain = event_ms(lambda: nms_ops.batched_greedy_nms(*args, max_out, thr), 3)
             nbytes, flops = nms_work(*args[:2], *want, thr)
             b_ms, b_by = bound(nbytes, flops)
-            timings[name] = dict(per_pick_ms=ms, sorted_ms=sorted_ms, wrapper_ms=wrapped,
-                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-            log(f"nms {name} timing: per-pick kernel {ms:.4f} ms, sorted scan "
-                f"{sorted_ms if sorted_ms is None else round(sorted_ms, 4)} ms (order "
-                f"given), through the wrapper {wrapped:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {flops} flop)")
+            timings[name] = dict(per_pick_ms=ms, per_pick_device_ms=pp_device,
+                                 sorted_ms=sorted_ms, sorted_device_ms=sorted_device,
+                                 wrapper_ms=wrapped, plain_ms=plain, bound_ms=b_ms,
+                                 bound_by=b_by, shape=[*boxes.shape])
+            log(f"nms {name} timing: per-pick kernel {ms:.4f} ms (device "
+                f"{fmt_ms(pp_device, 4)}),"
+                f" sorted scan {sorted_ms if sorted_ms is None else round(sorted_ms, 4)} "
+                f"ms (device {sorted_device}; order given), through the wrapper "
+                f"{wrapped:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
+                f"{nbytes} B, {flops} flop)")
 
     boxes, scores, ns, max_out, thr = nms_case("exhaustion")  # one cluster fills the pool
     args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, ns)]
@@ -401,6 +445,25 @@ def assign_launch(args):
     return launch
 
 
+def assign_ops(args, reps=5) -> list:
+    """The device operations ``reps`` assignment calls put on the stream:
+    nothing but the kernel, and at most one a call. The profiler may drop
+    some kernels of a session, so fewer than ``reps`` pass. When every
+    session comes back empty the check is logged as not made."""
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    ops = [name for name, _ in
+           device_events(lambda: assign_kernel.assign_anchors(*args), reps)]
+    if not ops:
+        log(f"assign: the profiler recorded nothing in {PROFILE_SESSIONS} sessions; "
+            f"one operation a call not checked")
+        return ops
+    if len(ops) > reps or not all("assign_kernel" in op for op in ops):
+        raise AssertionError(f"{reps} assignment calls put {ops} on the stream, "
+                             f"expected the kernel alone, once a call")
+    return ops
+
+
 def scratch_is_zero(dev) -> bool:
     from tpudet_torch.ops.cuda import assign_kernel
 
@@ -448,12 +511,10 @@ def phase_assign(dev, ssd_anchors):
             log(f"assign {name} timing: kernel {ms:.4f} ms, through the wrapper "
                 f"{wrapped:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
                 f"({b_by}: {nbytes} B, {flops} flop)")
-            ops = [name for name, _ in
-                   device_events(lambda: assign_kernel.assign_anchors(*args))]
-            if len(ops) != 1 or "assign_kernel" not in ops[0]:
-                raise AssertionError(f"one assignment call put {ops} on the stream, "
-                                     f"expected the one kernel")
-            log(f"assign: one call puts one operation on the stream: {ops[0][:60]}")
+            ops = assign_ops(args)
+            if ops:
+                log(f"assign: five calls put {len(ops)} operations on the stream, each "
+                    f"{ops[0][:60]}")
 
     # back to back, no sync between: three shapes of [B, G], then the first again
     names = ("ssd300_voc_like", "random_shared", "ties", "ssd300_voc_like")
@@ -489,9 +550,10 @@ def phase_serve(dev, n_requests=10):
 
 
 def leaves(outputs):
-    """The tensors of a net's output: a list of tensors or of tuples of them."""
-    return [t for item in outputs
-            for t in (item if isinstance(item, (tuple, list)) else (item,))]
+    """The tensors of a net's output, nested lists and tuples flattened."""
+    if isinstance(outputs, (tuple, list)):
+        return [t for item in outputs for t in leaves(item)]
+    return [outputs]
 
 
 def network_vs_cpu(model, x, outputs):
@@ -675,7 +737,7 @@ def train_model(dev, compute_dtype, images, gt, n_steps):
     return model
 
 
-def run_epoch(model, images, gt, warmup: int):
+def run_epoch(model, images, gt, warmup: int, lr: float = 0.01):
     """``warmup`` steps through ``train_step``, then one ``train_one_epoch``
     with the kernels' counts set to 0 just before it and read just after.
     Returns the losses (warm-up first), the counts, host images/s over the
@@ -684,7 +746,6 @@ def run_epoch(model, images, gt, warmup: int):
 
     from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 
-    lr = 0.01
     warm = [float(model.train_step(*model._to_device(images, gt), lr))
             for _ in range(warmup)]
     torch.cuda.synchronize()
@@ -707,45 +768,30 @@ def run_epoch(model, images, gt, warmup: int):
                 step_ms=start.elapsed_time(end) / steps)
 
 
-def loss_kernel_vs_plain(model, images, gt):
-    """On the same head outputs of one step: ssd_loss with both kernels ==
-    ssd_loss with both plain versions, on the card. Returns the kernels'
-    inputs on that step: the assignment's, the full-width mining call and the
-    mining pool the NMS kernel was given."""
+def loss_kernels_vs_plain(what, loss):
+    """``loss()`` with both kernels == with both plain versions, exactly, on
+    the card. Returns the kernels' inputs in the first call: ``assign`` (the
+    assignment's) and, where the loss mines, ``full`` (the pool call) and
+    ``pool`` (the ``nms_rows`` call that takes the pool's order)."""
     import torch
 
-    from tpudet_torch.heads import ssd as ssd_head
     from tpudet_torch.ops import matching
     from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
-
-    x, g = model._to_device(images, gt)
-    model.net.train()
-    with torch.no_grad():
-        pconf, pyx, phw = ssd_head.flatten_preds(model.net(model._preprocess(x)), 21)
-
-    def loss():
-        return ssd_head.ssd_loss(pconf, pyx, phw, model.anchors, g, 21, neg_sel_cap=384)
 
     captured = {}
     real = {"assign": assign_kernel.assign_anchors, "rows": nms_kernel.nms_rows,
             "pretopk": nms_kernel.batched_greedy_nms_pretopk}
 
-    def pretopk(*a):
-        captured.setdefault("full", a)
-        return real["pretopk"](*a)
-
-    def rows(*a):
-        captured.setdefault("pool", a)
-        return real["rows"](*a)
-
-    def assign(*a):
-        captured.setdefault("assign", a)
-        return real["assign"](*a)
+    def spy(key, fn):
+        def call(*a):
+            captured.setdefault(key, a)
+            return fn(*a)
+        return call
 
     try:
-        nms_kernel.batched_greedy_nms_pretopk = pretopk
-        nms_kernel.nms_rows = rows
-        assign_kernel.assign_anchors = assign
+        nms_kernel.batched_greedy_nms_pretopk = spy("full", real["pretopk"])
+        nms_kernel.nms_rows = spy("pool", real["rows"])
+        assign_kernel.assign_anchors = spy("assign", real["assign"])
         with_kernels = loss()
         nms_kernel.nms_rows = nms_kernel.plain_rows
         assign_kernel.assign_anchors = matching.assign_plain
@@ -756,14 +802,35 @@ def loss_kernel_vs_plain(model, images, gt):
         assign_kernel.assign_anchors = real["assign"]
     torch.cuda.synchronize()
     if not torch.equal(with_kernels, with_plain):
-        raise AssertionError(f"ssd_loss with the kernels {float(with_kernels)} != with "
-                             f"the plain versions {float(with_plain)}")
-    log(f"ssd_loss on one step's head outputs: kernels == plain versions on the card "
+        raise AssertionError(f"{what} with the kernels {float(with_kernels)} != with the "
+                             f"plain versions {float(with_plain)}")
+    log(f"{what} on one step's head outputs: kernels == plain versions on the card "
         f"({float(with_kernels):.6f})")
     return captured
 
 
-def profile_step(model, images, gt):
+def train_heads(model, images, gt, flatten):
+    """One train-mode forward of ``model`` on the batch, flattened, without
+    grad, and the gt on the card."""
+    import torch
+
+    x, g = model._to_device(images, gt)
+    model.net.train()
+    with torch.no_grad():
+        return flatten(model.net(model._preprocess(x))), g
+
+
+def loss_kernel_vs_plain(model, images, gt):
+    """ssd_loss with both kernels == with both plain versions on one step's
+    head outputs; the kernels' inputs on that step."""
+    from tpudet_torch.heads import ssd as ssd_head
+
+    heads, g = train_heads(model, images, gt, lambda o: ssd_head.flatten_preds(o, 21))
+    return loss_kernels_vs_plain("ssd_loss", lambda: ssd_head.ssd_loss(
+        *heads, model.anchors, g, 21, neg_sel_cap=384))
+
+
+def profile_step(model, images, gt, lr=0.01):
     """Device time by kernel over one train step, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -772,7 +839,7 @@ def profile_step(model, images, gt):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        model.train_step(x, g, 0.01)
+        model.train_step(x, g, lr)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
@@ -880,8 +947,8 @@ def nms_pool_timing(args, plain_reps=5):
     nbytes, flops = nms_work(top_b, top_s, psel, pval, thr)
     b_ms, b_by = bound(nbytes, flops)
     return dict(ms=(turns[1] + turns[2]) / 2, per_pick_ms=(turns[0] + turns[3]) / 2,
-                turns_ms=turns, device_ms=(device_turns[1] + device_turns[2]) / 2,
-                per_pick_device_ms=(device_turns[0] + device_turns[3]) / 2,
+                turns_ms=turns, device_ms=mean_ms(device_turns[1], device_turns[2]),
+                per_pick_device_ms=mean_ms(device_turns[0], device_turns[3]),
                 device_turns_ms=device_turns, pool_call_ms=pool_call, plain_ms=plain,
                 bound_ms=b_ms,
                 bound_by=b_by, picks=int(pval.sum()), shape=list(top_s.shape),
@@ -920,8 +987,9 @@ def log_pool(what, t):
         f"per-pick/sorted/sorted/per-pick {[round(x, 5) for x in t['turns_ms']]} ms: "
         f"sorted scan {t['ms']:.5f} ms, per-pick {t['per_pick_ms']:.5f} ms "
         f"({t['per_pick_ms'] / t['ms']:.1f}x); device time (profiler) in turns "
-        f"{[round(x, 5) for x in t['device_turns_ms']]} ms: sorted {t['device_ms']:.5f}, "
-        f"per-pick {t['per_pick_device_ms']:.5f}; the whole pool call (sort, scan, "
+        f"[{', '.join(fmt_ms(x) for x in t['device_turns_ms'])}] ms: sorted "
+        f"{fmt_ms(t['device_ms'])}, per-pick {fmt_ms(t['per_pick_device_ms'])}; the whole "
+        f"pool call (sort, scan, "
         f"check) {t['pool_call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
         f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
@@ -1073,45 +1141,14 @@ def retina_batch(seed, b, size):
 
 
 def retina_loss_kernel_vs_plain(model, images, gt):
-    """On the same head outputs of one step: retina_loss with the assignment
-    kernel == with its plain version, exactly. Returns the kernel's input."""
-    import torch
-
+    """retina_loss with the assignment kernel == with its plain version on
+    one step's head outputs. Returns the kernel's input."""
     from tpudet_torch.heads import retina as retina_head
-    from tpudet_torch.ops import matching
-    from tpudet_torch.ops.cuda import assign_kernel
 
-    x, g = model._to_device(images, gt)
-    model.net.train()
-    with torch.no_grad():
-        heads = retina_head.flatten_preds(model.net(model._preprocess(x)),
-                                          model.num_classes)
-
-    def loss():
-        return retina_head.retina_loss(*heads, model.anchors, g, model.num_classes,
-                                       model.alpha, model.gamma)
-
-    captured = {}
-    real = assign_kernel.assign_anchors
-
-    def assign(*a):
-        captured.setdefault("assign", a)
-        return real(*a)
-
-    try:
-        assign_kernel.assign_anchors = assign
-        with_kernel = loss()
-        assign_kernel.assign_anchors = matching.assign_plain
-        with_plain = loss()
-    finally:
-        assign_kernel.assign_anchors = real
-    torch.cuda.synchronize()
-    if not torch.equal(with_kernel, with_plain):
-        raise AssertionError(f"retina_loss with the kernel {float(with_kernel)} != with "
-                             f"the plain version {float(with_plain)}")
-    log(f"retina_loss on one step's head outputs: kernel == plain version on the card "
-        f"({float(with_kernel):.6f})")
-    return captured["assign"]
+    heads, g = train_heads(model, images, gt, lambda o: retina_head.flatten_preds(
+        o, model.num_classes))
+    return loss_kernels_vs_plain("retina_loss", lambda: retina_head.retina_loss(
+        *heads, model.anchors, g, model.num_classes, model.alpha, model.gamma))["assign"]
 
 
 def phase_retina_train(dev, n_steps=10, warmup=2):
@@ -1193,23 +1230,18 @@ def phase_retina_kernels(dev, serve_args, assign_args):
     from torch_nms_cases import retina_decode_case
 
     from tpudet_torch.ops import nms as nms_ops
-    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+    from tpudet_torch.ops.cuda import nms_kernel
 
     out = {}
     assign = assign_timing(assign_args)
     if not scratch_is_zero(dev):
         raise AssertionError("assignment kernel left its scratch non-zero at RetinaNet's "
                              "shape")
-    # the profiler may miss the first kernel of a session, so: nothing but
-    # the kernel, and at most one operation a call
-    ops = [name for name, _ in device_events(lambda: assign_kernel.assign_anchors(
-        *assign_args), reps=5)]
-    if not 0 < len(ops) <= 5 or not all("assign_kernel" in op for op in ops):
-        raise AssertionError(f"five assignment calls put {ops} on the stream")
+    assign_ops(assign_args)
     log(f"assign at RetinaNet's shape {tuple(assign_args[2].shape)} x "
         f"{assign_args[3].shape[0]} anchors: kernel == plain (best_iou bit for bit), "
         f"one device operation, scratch zero; kernel {assign['ms']:.4f} ms (device time "
-        f"{assign['device_ms']:.4f} ms), plain {assign['plain_ms']:.4f} ms, bound "
+        f"{fmt_ms(assign['device_ms'], 4)} ms), plain {assign['plain_ms']:.4f} ms, bound "
         f"{assign['bound_ms']:.6f} ms ({assign['bound_by']})")
     out["assign"] = assign
 
@@ -1237,10 +1269,180 @@ def phase_retina_kernels(dev, serve_args, assign_args):
         f"per-pick kernel reran at full width, == plain ({int(val.sum())} picks, row 0 "
         f"{int(val[0].sum())}); per-pick at full width "
         f"{[round(x, 4) for x in full['turns_ms']]} ms (device time "
-        f"{full['device_ms']:.4f} ms), plain {full['plain_ms']:.4f} ms, bound "
+        f"{fmt_ms(full['device_ms'], 4)} ms), plain {full['plain_ms']:.4f} ms, bound "
         f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
     out["full_width"] = full
     return out
+
+
+# --------------------------------------------------------------- RefineDet / PFPNet
+# the training scripts' config (drivers/testrefinedet.py, drivers/testpfpnet.py);
+# no VGG-16 file: seeded random weights
+REFINE_CONFIG = {
+    "mode": "train", "input_size": 320, "data_format": "channels_last",
+    "num_classes": 20, "weight_decay": 1e-4, "keep_prob": 0.5, "batch_size": 32,
+    "nms_score_threshold": 0.1, "nms_max_boxes": 20, "nms_iou_threshold": 0.45,
+    "pretraining_weight": None, "compute_dtype": "bfloat16", "hard_neg_cap": 384,
+    "seed": 0}
+REFINE_SIZE = 320
+REFINE_ANCHORS = 6375
+REFINE_FAMILIES = {  # name: (the training script's lr, parameters, key in records)
+    "RefineDet320": (1e-4, 55136414, "refinedet"),
+    "PFPNetR": (1e-3, 52723348, "pfpnet")}
+
+
+def refine_model(name, dev, provider=None, **overrides):
+    from tpudet_torch import models
+
+    t0 = time.perf_counter()
+    model = getattr(models, name)(dict(REFINE_CONFIG, **overrides), provider)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log(f"{name} ({model.mode}, {model.compute_dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, "
+        f"{model.anchors.yx.shape[0]} anchors")
+    if model.device.type != dev.type:
+        raise AssertionError(f"{name} must default to the card")
+    if REFINE_SIZE == 320 and (n_params != REFINE_FAMILIES[name][1]
+                               or model.anchors.yx.shape[0] != REFINE_ANCHORS):
+        raise AssertionError(f"{name} at its training script's config must have "
+                             f"{REFINE_FAMILIES[name][1]} parameters and "
+                             f"{REFINE_ANCHORS} anchors")
+    return model
+
+
+def network_vs_cpu_normwise(model, x, outputs):
+    """The net on the card against the same weights on the CPU, normwise per
+    output (|diff|_2 / |value|_2), held to 1e-4 or to 4x the CPU's own
+    difference between its two summation orders (oneDNN's and PyTorch's
+    convolutions), whichever is larger."""
+    import torch
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got.float().cpu() - want.float())
+                     / torch.linalg.vector_norm(want.float()))
+
+    dev = x.device
+    xin = model._preprocess(x).cpu()
+    cpu_net = model.net.to("cpu")
+    try:
+        want = leaves(cpu_net(xin))
+        with torch.backends.mkldnn.flags(enabled=False):
+            other = leaves(cpu_net(xin))
+    finally:
+        model.net.to(dev)
+    card_err = max(rel(g, w) for g, w in zip(leaves(outputs), want))
+    cpu_err = max(rel(g, w) for g, w in zip(other, want))
+    log(f"network on the card vs the CPU, same weights, normwise over "
+        f"{len(want)} outputs: {card_err:.2e}, against {cpu_err:.2e} between the "
+        f"CPU's two summation orders")
+    if card_err > max(1e-4, 4 * cpu_err):
+        raise AssertionError(f"network on the card vs the CPU: {card_err} (CPU orders "
+                             f"{cpu_err})")
+    return dict(card=card_err, cpu_orders=cpu_err)
+
+
+def phase_refine_serve(dev, name, n_requests=10):
+    """``name`` at its training script's config in test mode, fp32, score
+    threshold 0.01 (random weights put the ODM softmax near 1/21, under the
+    script's 0.1): one NMS launch (the sorted scan on the decode pool) and no
+    assignment a request."""
+    import torch
+
+    model = refine_model(name, dev, mode="test", compute_dtype="float32",
+                         nms_score_threshold=0.01)
+    out = serve_requests(dev, model, REFINE_SIZE, n_requests, network_vs_cpu_normwise)
+    counts = out["counts"]
+    if (counts["sorted_scan"] != n_requests or counts["assign"]
+            or not n_requests <= counts["nms_rows"] <= 2 * n_requests):
+        raise AssertionError(f"{name} serving: expected one sorted scan (and a "
+                             f"full-width rerun when a pool runs out) and no assignment "
+                             f"a request, got {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_refine_train(dev, name, n_steps=10, warmup=2):
+    """The training script's config: batch 32, bf16, its lr, on one fixed
+    batch through train_one_epoch; one assignment and one NMS launch a step
+    (two when the mining pool runs out)."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.heads import refine as refine_head
+
+    lr, _, _ = REFINE_FAMILIES[name]
+    images, gt = retina_batch(6, TRAIN_BATCH, REFINE_SIZE)
+    log(f"{name} train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = refine_model(name, dev, feed((images, gt), n_steps, TRAIN_BATCH),
+                         batch_size=TRAIN_BATCH)
+    run = run_epoch(model, images, gt, warmup, lr)
+    counts, steps, losses = run["counts"], run["steps"], run["losses"]
+    log(f"{name} bf16: {warmup} warm-up steps + {steps} in train_one_epoch at lr {lr}; "
+        f"kernel launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
+    if (steps != n_steps or counts["assign"] != steps
+            or not steps <= counts["nms_rows"] <= 2 * steps
+            or counts["sorted_scan"] != steps):
+        raise AssertionError(f"the {name} train path must launch the assignment kernel "
+                             f"once a step and the NMS kernel's sorted scan once a step "
+                             f"(and the per-pick kernel when a pool runs out): {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on one batch: {losses}")
+    log(f"{name} bf16 train: {run['images_per_s']:.1f} images/s by the host clock, "
+        f"{run['step_ms']:.3f} ms/step by CUDA events, epoch mean {run['mean']:.4f}")
+    heads, g = train_heads(model, images, gt, lambda o: refine_head.flatten_preds(
+        *o, model.num_classes))
+    captured = loss_kernels_vs_plain("refine_loss", lambda: refine_head.refine_loss(
+        *heads, model.anchors, g, model.num_classes, neg_sel_cap=384))
+    run["profile"] = profile_step(model, images, gt, lr)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{name} peak device memory {run['peak_gib']:.2f} GiB (bf16 training)")
+    del model
+    torch.cuda.empty_cache()
+    return dict(run=run, captured=captured)
+
+
+def phase_refine_kernels(name, serve_args, captured):
+    """Both kernels at the family's shapes against their plain versions,
+    timed: the assignment at [32, 60, 6375] and the mining pool [32, 768] of
+    [32, 6375] on a train step's inputs, the decode pool [20, 512] of
+    [20, 6375] on a request's."""
+    assign = assign_timing(captured["assign"])
+    log(f"{name} assign {tuple(captured['assign'][2].shape)} x "
+        f"{captured['assign'][3].shape[0]} anchors: kernel == plain, "
+        f"{assign['ms']:.4f} ms (device {fmt_ms(assign['device_ms'], 4)} ms), plain "
+        f"{assign['plain_ms']:.4f} ms, bound {assign['bound_ms']:.6f} ms "
+        f"({assign['bound_by']})")
+    mining = nms_pool_timing(captured["pool"])
+    log_pool(f"{name}'s mining pool (cap 384, IoU 0.7)", mining)
+    decode = nms_pool_timing(serve_args)
+    log_pool(f"{name}'s decode pool", decode)
+    return dict(assign=assign, mining_pool=mining, decode_pool=decode)
+
+
+def refine_records(serve, train, kern, n_requests):
+    """The family's entries of the kernels' JSON record."""
+    s_counts, t_counts = serve["counts"], train["run"]["counts"]
+    steps = train["run"]["steps"]
+    pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
+                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")
+    nms = {"launches": s_counts["nms_rows"] + t_counts["nms_rows"],
+           "launches_per_request": s_counts["nms_rows"] / n_requests,
+           "launches_per_step": t_counts["nms_rows"] / steps,
+           "launches_by_path": {k: s_counts[k] + t_counts[k]
+                                for k in ("sorted_scan", "per_pick")},
+           "decode_pool": {k: kern["decode_pool"][k] for k in pool_keys},
+           "mining_pool": {k: kern["mining_pool"][k] for k in pool_keys}}
+    assign = {"launches": t_counts["assign"] + s_counts["assign"],
+              "launches_per_step": t_counts["assign"] / steps,
+              "launches_per_request": s_counts["assign"] / n_requests,
+              **{k: kern["assign"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by")}}
+    return nms, assign
 
 
 def main() -> int:
@@ -1297,12 +1499,12 @@ def main() -> int:
     log(f"NMS per-pick design on the same mining scores at full width "
         f"{mine_full['shape']} ({mine_full['picks']} picks): "
         f"{[round(x, 4) for x in mine_full['turns_ms']]} ms (device time "
-        f"{mine_full['device_ms']:.4f} ms), plain "
+        f"{fmt_ms(mine_full['device_ms'], 4)} ms), plain "
         f"{mine_full['plain_ms']:.4f} ms, bound {mine_full['bound_ms']:.6f} ms "
         f"({mine_full['bound_by']})")
     assign = assign_timing(mining["assign"])
     log(f"assign on the train step's input: kernel {assign['ms']:.4f} ms (device time "
-        f"{assign['device_ms']:.4f} ms), plain "
+        f"{fmt_ms(assign['device_ms'], 4)} ms), plain "
         f"{assign['plain_ms']:.4f} ms, bound {assign['bound_ms']:.6f} ms "
         f"({assign['bound_by']})")
 
@@ -1313,6 +1515,23 @@ def main() -> int:
     r_kern = phase_retina_kernels(dev, r_serve["kernel_args"], r_train["assign_args"])
     r_run, r_counts = r_train["run"], r_train["run"]["counts"]
     r_steps = r_run["steps"]
+
+    # 9. RefineDet320 and PFPNet-R: serve, train, both kernels at their shapes
+    refine = {}
+    for name, (_, _, key) in REFINE_FAMILIES.items():
+        f_serve = phase_refine_serve(dev, name, n_requests)
+        f_train = phase_refine_train(dev, name)
+        f_kern = phase_refine_kernels(name, f_serve["kernel_args"], f_train["captured"])
+        refine[key] = dict(serve=f_serve, train=f_train, kernels=f_kern,
+                           records=refine_records(f_serve, f_train, f_kern, n_requests))
+    log(json.dumps({key: {
+        "serve_p50_ms": f["serve"]["p50"], "serve_ms": f["serve"]["latencies"],
+        "serve_counts": f["serve"]["counts"], "network_ms": f["serve"]["network_ms"],
+        "decode_ms": f["serve"]["decode_ms"],
+        "network_vs_cpu": f["serve"]["network_vs_cpu"],
+        "train_bf16": {k: f["train"]["run"][k] for k in (
+            "images_per_s", "step_ms", "losses", "counts", "peak_gib", "profile")},
+        "kernels": f["kernels"]} for key, f in refine.items()}))
 
     log(json.dumps({"retinanet": {
         "serve_p50_ms": r_serve["p50"], "serve_ms": r_serve["latencies"],
@@ -1333,7 +1552,8 @@ def main() -> int:
         {"name": "nms_rows", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
          "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
          "launches": (serve["counts"]["nms_rows"] + counts["nms_rows"]
-                      + r_serve["counts"]["nms_rows"] + r_counts["nms_rows"]),
+                      + r_serve["counts"]["nms_rows"] + r_counts["nms_rows"]
+                      + sum(f["records"][0]["launches"] for f in refine.values())),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -1376,10 +1596,14 @@ def main() -> int:
                  "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")},
              "run_out_full_width": {k: r_kern["full_width"][k] for k in (
                  "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks",
-                 "shape")}}},
+                 "shape")}},
+         # tpudet's per-image kernel's case: per-row boxes [5, 300, 4]
+         "per_row_boxes": timings["per_row_boxes"],
+         **{key: f["records"][0] for key, f in refine.items()}},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
-         "launches": counts["assign"] + r_counts["assign"],
+         "launches": (counts["assign"] + r_counts["assign"]
+                      + sum(f["records"][1]["launches"] for f in refine.values())),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -1391,7 +1615,8 @@ def main() -> int:
              "launches": r_counts["assign"], "launches_per_step": r_counts["assign"] / r_steps,
              "launches_per_request": r_serve["counts"]["assign"] / n_requests,
              **{k: r_kern["assign"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                 "bound_by")}}},
+                                                 "bound_by")}},
+         **{key: f["records"][1] for key, f in refine.items()}},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

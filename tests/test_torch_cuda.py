@@ -154,3 +154,88 @@ def test_retina_decode_pool_equals_plain(cuda_device, run_out):
     np.testing.assert_array_equal(sel.cpu().numpy(), want[0].numpy())
     if run_out:
         assert int(want[1][0].sum()) > 1  # row 0 picks beyond its pool
+
+
+# ------------------------------------------------------------ RefineDet / PFPNet
+def _refine_inputs(family, b=4, seed=0):
+    """Head tensors and gt at 320x320 (6375 anchors) for ``family``'s anchors."""
+    from tpudet_torch.heads import refine as t_refine
+    from tpudet_torch.models.refinedet import _pfpnet_feat_shapes, _refine_feat_shapes
+
+    shapes = {"refinedet": _refine_feat_shapes, "pfpnet": _pfpnet_feat_shapes}[family](320)
+    anc = t_refine.build_anchors(shapes)
+    a = anc.yx.shape[0]
+    rng = np.random.default_rng(seed)
+    heads = [rng.normal(0, s, (b, a, c)).astype(np.float32)
+             for s, c in ((0.5, 2), (0.5, 2), (2, 2), (0.5, 2), (0.5, 2), (2, 21))]
+    gt = rand_gt(rng, b, 60, 10, size=320.0, n_valid_min=1)
+    return anc, [torch.from_numpy(h) for h in heads], torch.from_numpy(gt)
+
+
+def _to(anc, dev):
+    return type(anc)(*(t.to(dev) for t in anc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["refinedet", "pfpnet"])
+def test_refine_loss_with_kernels_equals_plain(cuda_device, monkeypatch, family):
+    """``refine_loss`` on the card: one assignment launch and the mining pool's
+    NMS launch, equal exactly to the loss with both plain versions."""
+    from tpudet_torch.heads import refine as t_refine
+
+    anc, heads, gt = _refine_inputs(family)
+    anc, heads, gt = _to(anc, cuda_device), [h.to(cuda_device) for h in heads], gt.to(
+        cuda_device)
+    before = (assign_kernel.launches, nms_kernel.launches)
+    with_kernels = t_refine.refine_loss(*heads, anc, gt, 21, neg_sel_cap=384)
+    torch.cuda.synchronize()
+    used = (assign_kernel.launches - before[0], nms_kernel.launches - before[1])
+    assert used[0] == 1 and used[1] >= 1
+    monkeypatch.setattr(assign_kernel, "assign_anchors", t_matching.assign_plain)
+    monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
+    with_plain = t_refine.refine_loss(*heads, anc, gt, 21, neg_sel_cap=384)
+    assert torch.isfinite(with_kernels) and torch.equal(with_kernels, with_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["refinedet", "pfpnet"])
+def test_refine_decode_pool_equals_plain(cuda_device, monkeypatch, family):
+    """``refine_decode`` of one image on the card: the decode pool [20, 512] of
+    [20, 6375] through the sorted scan, equal to the plain version."""
+    from tpudet_torch.heads import refine as t_refine
+
+    anc, heads, _ = _refine_inputs(family, b=1, seed=1)
+    anc = _to(anc, cuda_device)
+    heads = [h[0].to(cuda_device) for h in heads]
+    before = dict(nms_kernel.launches_by_path)
+    got = t_refine.refine_decode(*heads, anc, 21, 0.1, 0.45, 20)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches_by_path["sorted_scan"] == before["sorted_scan"] + 1
+    monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
+    want = t_refine.refine_decode(*heads, anc, 21, 0.1, 0.45, 20)
+    assert int(want[3].sum()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ssd", "retinanet", "refinedet"])
+def test_out_of_range_class_id_gives_nan_on_the_card(cuda_device, family):
+    """A gt class id >= num_classes makes the loss NaN on the card, as in
+    tpudet, with no device-side assert: the context stays usable after."""
+    from tpudet_torch.heads import refine as t_refine
+
+    anc, heads, gt = _refine_inputs("refinedet", b=2, seed=2)
+    gt[0, 0, 4] = 30  # 21 classes with the background
+    anc, gt = _to(anc, cuda_device), gt.to(cuda_device)
+    heads = [h.to(cuda_device) for h in heads]
+    if family == "refinedet":
+        loss = t_refine.refine_loss(*heads, anc, gt, 21)
+    elif family == "ssd":
+        loss = t_ssd.ssd_loss(heads[5], heads[3], heads[4], anc, gt, 21)
+    else:
+        loss = t_retina.retina_loss(heads[5], heads[3], heads[4], anc, gt, 21, 0.25, 2.0)
+    assert torch.isnan(loss)
+    x = torch.arange(8.0, device=cuda_device)
+    assert float((x * 2).sum()) == 56.0
+    torch.cuda.synchronize()

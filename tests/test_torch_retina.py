@@ -25,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from tpudet.heads import refine as jax_refine
 from tpudet.heads import retina as jax_retina
+from tpudet.heads import ssd as jax_ssd
 from tpudet.models import base as jax_base
 from tpudet.models.retinanet import RetinaNet as JaxRetinaNet
 from tpudet.models.retinanet import _stage_shapes as jax_stage_shapes
@@ -34,7 +36,9 @@ from tpudet.nn.backbones.resnet import PreActResNet as JaxResNet
 from tpudet.nn.necks.fpn import RetinaFPN as JaxFPN
 from tpudet.ops import losses as jax_losses
 from tpudet.runtime import optim as jax_optim
+from tpudet_torch.heads import refine as t_refine
 from tpudet_torch.heads import retina as t_retina
+from tpudet_torch.heads import ssd as t_ssd
 from tpudet_torch.models import RetinaNet
 from tpudet_torch.models.retinanet import _stage_shapes, pyramid_shapes
 from tpudet_torch.nn import layers as t_layers
@@ -331,25 +335,53 @@ def test_retina_loss_matches_tpudet(monkeypatch, anchors64, name):
         assert float(got.detach()) > 1e6  # the negatives' sum over a 1e-8 denominator
 
 
-def test_out_of_range_class_id_raises_where_tpudet_gives_nan(monkeypatch, anchors64):
+def _out_of_range_losses(family, rng, a):
+    """(tpudet's loss, the port's loss on the same head tensors, the port's
+    head tensors) for ``family``; 5 classes with the background."""
+    if family == "refinedet":
+        heads = [rng.normal(0, s, (1, a, c)).astype(np.float32)
+                 for s, c in ((0.5, 2), (0.5, 2), (2, 2), (0.5, 2), (0.5, 2), (2, 5))]
+        jax_fn, port_fn = jax_refine.refine_loss, t_refine.refine_loss
+    else:
+        heads = [rng.normal(0, 2, (1, a, 5)).astype(np.float32),
+                 rng.normal(0, 0.5, (1, a, 2)).astype(np.float32),
+                 rng.normal(0, 0.5, (1, a, 2)).astype(np.float32)]
+        jax_fn, port_fn = {"ssd": (jax_ssd.ssd_loss, t_ssd.ssd_loss),
+                           "retinanet": (jax_retina.retina_loss, t_retina.retina_loss)}[
+                               family]
+    extra = (0.25, 2.0) if family == "retinanet" else ()
+    return jax_fn, port_fn, heads, extra
+
+
+@pytest.mark.parametrize("family", ["ssd", "retinanet", "refinedet"])
+def test_out_of_range_class_id_raises_where_tpudet_gives_nan(monkeypatch, anchors64,
+                                                             family):
     """A gt class id >= num_classes: tpudet's ``take_along_axis`` fills NaN
-    and its loss is NaN (``tpudet/heads/retina.py:102``); the port's gather
-    raises instead of training on NaN."""
+    and its loss is NaN (``tpudet/heads/retina.py:102``,
+    ``tpudet/ops/losses.py:29,45``); the port's gathers read the class with
+    the same semantics (``ops/losses.py::take_last``), so its SSD, RetinaNet
+    and RefineDet losses are NaN too, and nothing raises. The gradients of
+    the head tensors agree, NaN where tpudet's are NaN."""
     monkeypatch.setenv("TPUDET_SSD_CONF_LAYOUT", "ac")
     janc, tanc = anchors64
     rng = np.random.default_rng(3)
-    a = tanc.yx.shape[0]
-    heads = [rng.normal(0, 2, (1, a, 5)).astype(np.float32),
-             rng.normal(0, 0.5, (1, a, 2)).astype(np.float32),
-             rng.normal(0, 0.5, (1, a, 2)).astype(np.float32)]
     gt = _gt(rng, 1, 4, 2, 64.0)
     gt[0, 0, 4] = 7  # 5 classes with the background
-    want = jax_retina.retina_loss(*map(jnp.asarray, heads), janc, jnp.asarray(gt), 5,
-                                  0.25, 2.0)
-    assert np.isnan(float(want))
-    with pytest.raises((IndexError, RuntimeError), match="out of bounds"):
-        t_retina.retina_loss(*map(torch.from_numpy, heads), tanc, torch.from_numpy(gt),
-                             5, 0.25, 2.0)
+    jax_fn, port_fn, heads, extra = _out_of_range_losses(family, rng, tanc.yx.shape[0])
+
+    def jax_loss(*h):
+        return jax_fn(*h, janc, jnp.asarray(gt), 5, *extra)
+
+    want, wgrads = jax.value_and_grad(jax_loss, argnums=tuple(range(len(heads))))(
+        *map(jnp.asarray, heads))
+    tt = [torch.tensor(h, requires_grad=True) for h in heads]
+    got = port_fn(*tt, tanc, torch.from_numpy(gt), 5, *extra)
+    assert np.isnan(float(want)) and torch.isnan(got)
+    for g, w in zip(torch.autograd.grad(got, tt), wgrads):
+        w = np.asarray(w)
+        scale = np.nanmax(np.abs(w)) if np.isfinite(w).any() else 1.0
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * scale,
+                                   equal_nan=True)
 
 
 # ------------------------------------------------------------ the whole model

@@ -114,6 +114,26 @@ def test_loss_primitives_match_tpudet():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+def test_take_last_matches_take_along_axis():
+    """Indices in [-C, C) wrap, others give NaN and a zero gradient, as
+    ``jnp.take_along_axis`` does; nothing raises."""
+    x = np.arange(10, dtype=np.float32).reshape(2, 5)
+    idx = np.asarray([[-1, -5, -6, 5, 7, 0], [4, 2, -2, 9, -7, 3]], np.int32)
+
+    def jax_take(v):
+        return jnp.take_along_axis(v, jnp.asarray(idx), axis=-1)
+
+    want = np.asarray(jax_take(jnp.asarray(x)))
+    tx = torch.tensor(x, requires_grad=True)
+    got = torch.stack([t_losses.take_last(tx, torch.from_numpy(idx[:, k]))
+                       for k in range(idx.shape[1])], -1)
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    assert np.isnan(want).sum() == 5
+    w = np.asarray(jax.grad(lambda v: jnp.nansum(jax_take(v)))(jnp.asarray(x)))
+    g = torch.autograd.grad(torch.nansum(got), tx)[0].numpy()
+    np.testing.assert_array_equal(g, w)
+
+
 @pytest.fixture(scope="module")
 def anchors76():
     shapes = _ssd_feat_shapes(76, SSD300.extra_strides)

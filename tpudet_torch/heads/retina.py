@@ -114,8 +114,8 @@ def flatten_preds(preds, num_classes_total: int):
 
 def _focal_rowwise(pconf, labels, alpha: float, gamma: float):
     """``-alpha (1-p)^gamma log p`` of each row's ``labels`` class, with ``p``
-    clipped to [1e-8, 1]."""
-    p = torch.gather(torch.softmax(pconf, -1), -1, labels[..., None].long())[..., 0]
+    clipped to [1e-8, 1]; NaN for a class id out of range, as in tpudet."""
+    p = loss_ops.take_last(torch.softmax(pconf, -1), labels)
     p = torch.clamp(p, 1e-8, 1.0)
     return -alpha * torch.pow(1.0 - p, gamma) * torch.log(p)
 

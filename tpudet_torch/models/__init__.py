@@ -1,5 +1,6 @@
-"""Model classes with tpudet's public API: SSD300, SSD512 and RetinaNet,
-trained and served."""
+"""Model classes with tpudet's public API: SSD300, SSD512, RetinaNet,
+RefineDet320 (alias RefineDet) and PFPNetR, trained and served."""
 
+from tpudet_torch.models.refinedet import PFPNetR, RefineDet, RefineDet320  # noqa: F401
 from tpudet_torch.models.retinanet import RetinaNet  # noqa: F401
 from tpudet_torch.models.ssd import SSD300, SSD512  # noqa: F401

@@ -28,7 +28,9 @@ class VGG16Trunk(nn.Module):
     """conv1_1 .. conv5_3 with 2x2 SAME max-pools after blocks 1-4.
 
     Returns ``(conv4_3, conv5_3)``: conv4_3 is pre-pool4 (stride 8), conv5_3 the
-    block-5 output (stride 16).
+    block-5 output (stride 16). ``with_conv5=False`` stops after conv4_3 and
+    returns ``(conv4_3, None)``: block 5's parameters stay in the module, as
+    they stay in tpudet's tree when its output is dropped (PFPNet).
     """
 
     def __init__(self, generator: Optional[torch.Generator] = None,
@@ -42,13 +44,14 @@ class VGG16Trunk(nn.Module):
                                      generator=generator, dtype=dtype))
                 in_ch = width
 
-    def forward(self, x):
-        endpoints = {}
-        for bi, (block, _, reps) in enumerate(_VGG_CFG):
+    def forward(self, x, with_conv5: bool = True):
+        endpoints = {"conv5_3": None}
+        blocks = _VGG_CFG if with_conv5 else _VGG_CFG[:4]
+        for bi, (block, _, reps) in enumerate(blocks):
             for ri in range(reps):
                 x = getattr(self, f"{block}_{ri + 1}")(x)
             endpoints[f"{block}_{reps}"] = x
-            if bi < 4:
+            if bi < len(blocks) - 1:
                 x = max_pool_same(x, 2, 2)
         return endpoints["conv4_3"], endpoints["conv5_3"]
 

@@ -4,7 +4,8 @@ Layout is NCHW inside the port. Conventions kept from tpudet:
 
   * TF "SAME" padding, which is asymmetric: ``total = max((out-1)*stride +
     (k-1)*dilation + 1 - in, 0)``, ``lo = total // 2``, ``hi = total - lo``;
-    max-pooling pads with ``-inf``;
+    max-pooling pads with ``-inf``, average pooling with zeros that count in
+    the divisor (flax's ``avg_pool``);
   * glorot-uniform conv kernels and zero biases, drawn from a caller's
     ``torch.Generator``;
   * BatchNorm as flax's ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)``, written
@@ -54,6 +55,13 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return F.max_pool2d(pad_same(x, window, stride, value=-math.inf), window, stride)
 
 
+def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """flax's ``nn.avg_pool(padding="SAME")``: the zero padding counts in the
+    divisor (TF's ``average_pooling2d`` leaves it out), so on a 5x5 map of
+    ones a 2x2 stride-2 window gives 0.5 on the edge and 0.25 in the corner."""
+    return F.avg_pool2d(pad_same(x, window, stride), window, stride)
+
+
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with TF "SAME" padding, glorot-uniform kernel, zero bias.
 
@@ -86,6 +94,48 @@ class SameConv2d(nn.Conv2d):
             top = left = 0
         y = F.conv2d(x, self.weight.to(dt), None, self.stride, (top, left),
                      self.dilation)
+        return y + self.bias.to(dt).view(1, -1, 1, 1)
+
+
+class SameConvTranspose2d(nn.ConvTranspose2d):
+    """flax's ``nn.ConvTranspose(filters, (k, k), strides=(s, s),
+    padding="SAME")``: output ``size * stride``, lecun-normal kernel (normal
+    truncated at +-2 std, std ``1/sqrt(k*k*in_ch)`` after the cut) drawn from
+    the caller's generator, zero bias.
+
+    flax does not flip the kernel (``lax.conv_transpose`` with
+    ``transpose_kernel=False``) and torch's ``conv_transpose2d``, the gradient
+    of a convolution, does: ``weight`` holds flax's kernel flipped in both
+    spatial axes, ``[in, out, k, k]`` (``runtime/transfer.py`` converts).
+    ``dtype`` is the compute type, cast as :class:`SameConv2d` does."""
+
+    def __init__(self, in_ch: int, filters: int, kernel: int = 4, stride: int = 2,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        # lax's SAME padding of the stride-dilated input: lo before, hi after;
+        # torch pads kernel-1-padding on both sides and output_padding after
+        pad_len = kernel + stride - 2
+        lo = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+        if pad_len - lo < lo:
+            raise ValueError(f"lax's SAME padding of kernel {kernel}, stride {stride} "
+                             f"pads less after than before; torch cannot")
+        super().__init__(in_ch, filters, kernel, stride=stride, padding=kernel - 1 - lo,
+                         output_padding=pad_len - 2 * lo)
+        self.compute_dtype = dtype
+        with torch.no_grad():
+            std = math.sqrt(1.0 / (in_ch * kernel * kernel)) / TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            self.bias.zero_()
+
+    def reset_parameters(self):
+        # nn.ConvTranspose2d's own init would draw from the global RNG
+        pass
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                               self.padding, self.output_padding)
         return y + self.bias.to(dt).view(1, -1, 1, 1)
 
 
@@ -216,11 +266,22 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     if (h, w) == (out_h, out_w):
         return x
-    dev = x.device
-    ys = torch.arange(out_h, dtype=torch.float32, device=dev) * torch.tensor(
-        h / out_h, dtype=torch.float32)
-    xs = torch.arange(out_w, dtype=torch.float32, device=dev) * torch.tensor(
-        w / out_w, dtype=torch.float32)
+    return bilinear_at(x, source_positions(out_h, h / out_h, x.device),
+                       source_positions(out_w, w / out_w, x.device))
+
+
+def source_positions(n: int, step: float, device) -> torch.Tensor:
+    """``arange(n) * step`` in float32, the step rounded to float32 first (as
+    a weakly typed Python float multiplies a float32 array in JAX)."""
+    return torch.arange(n, dtype=torch.float32, device=device) * torch.tensor(
+        step, dtype=torch.float32)
+
+
+def bilinear_at(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of NCHW ``x`` at float32 source rows ``ys`` and
+    columns ``xs``: the lerp multiplies the gathered values by float32
+    weights, so a bfloat16 input gives a float32 output, as in tpudet."""
+    h, w = x.shape[-2:]
     y0 = torch.clamp(torch.floor(ys), 0, h - 1).long()
     x0 = torch.clamp(torch.floor(xs), 0, w - 1).long()
     y1 = torch.clamp(y0 + 1, max=h - 1)

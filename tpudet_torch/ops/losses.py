@@ -27,15 +27,27 @@ def log_softmax(logits: torch.Tensor) -> torch.Tensor:
     return logits - _logsumexp(logits)[..., None]
 
 
+def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` row by row, with ``jnp.take_along_axis``'s semantics:
+    an index in ``[-C, C)`` wraps as in numpy, any other gives NaN and passes
+    no gradient back. Nothing raises, so a bad class id on the card makes the
+    loss NaN, as in tpudet, instead of a device-side assert."""
+    c = x.shape[-1]
+    idx = idx.long()
+    in_range = (idx >= -c) & (idx < c)
+    safe = torch.where(in_range, torch.remainder(idx, c), 0)
+    picked = torch.gather(x, -1, safe[..., None])[..., 0]
+    return torch.where(in_range, picked, float("nan"))
+
+
 def ce_from_log_probs(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``-log_probs[..., label]``."""
-    return -torch.gather(log_probs, -1, labels[..., None].long())[..., 0]
+    return -take_last(log_probs, labels)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Sparse softmax CE per row: ``logits [..., C]``, ``labels [...]`` int."""
-    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return _logsumexp(logits) - picked
+    return _logsumexp(logits) - take_last(logits, labels)
 
 
 def weighted_mean(per_sample: torch.Tensor, sample_weight=None) -> torch.Tensor:

@@ -5,9 +5,13 @@ dicts of numpy arrays, as ``jax.device_get`` returns them) and renames each
 leaf by the port's module names, which are flax's:
 
   * ``.../conv/kernel`` (HWIO) -> ``....conv.weight`` (OIHW); ``.../conv/bias``;
+  * ``.../dconv/kernel`` (HWIO of flax's ``ConvTranspose``) -> ``....dconv.weight``
+    (``[in, out, kh, kw]``, flipped in both spatial axes: flax does not flip
+    the kernel, torch's ``conv_transpose2d`` does); ``.../dconv/bias``;
   * ``.../bn/{scale,bias}`` and ``batch_stats/.../bn/{mean,var}`` keep their
     names (see :class:`tpudet_torch.nn.layers.BatchNorm`);
-  * the L2-norm ``scale`` of shape ``[1]``.
+  * the L2-norm ``scale`` of shape ``[1]`` (``l2_norm``, and RefineDet's and
+    PFPNet's ``feat1_l2_norm`` and ``feat2_l2_norm``).
 
 A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
 missing or extra key, or a shape that differs, raises too.
@@ -29,7 +33,11 @@ _LEAVES = {
     ("params", "bn", "bias"),
     ("batch_stats", "bn", "mean"),
     ("batch_stats", "bn", "var"),
+    ("params", "dconv", "kernel"),
+    ("params", "dconv", "bias"),
     ("params", "l2_norm", "scale"),
+    ("params", "feat1_l2_norm", "scale"),
+    ("params", "feat2_l2_norm", "scale"),
 }
 
 
@@ -58,7 +66,8 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = np.asarray(leaf, np.float32)
             name = ".".join(path)
             if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                arr = (arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # IOHW, flipped
+                       if path[-2] == "dconv" else arr.transpose(3, 2, 0, 1))  # OIHW
                 name = ".".join(path[:-1] + ("weight",))
             if name in out:
                 raise KeyError(f"flax leaf {name} appears twice")
@@ -74,7 +83,7 @@ def load_flax(module: torch.nn.Module, variables: Mapping[str, Any]) -> None:
 def velocity_from_flax(velocity: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpudet's Momentum state (``opt_state.velocity``: the tree of ``params``,
     as numpy arrays) -> the port's velocity dict, keyed like
-    ``named_parameters()``; HWIO kernels become OIHW."""
+    ``named_parameters()``; kernels convert as the parameters do."""
     return from_flax({"params": velocity})
 
 
