@@ -52,7 +52,24 @@ Phases, each raising on failure (nothing is caught):
      kernels == with the plain versions on one step's head outputs; then both
      kernels at the family's shapes, timed: the assignment at [32, 60, 6375],
      the mining pool [32, 768] of [32, 6375] and the decode pool [20, 512] of
-     [20, 6375].
+     [20, 6375];
+ 10. SSD512 at its training script's config (``drivers/testSSD512.py``:
+     512x512, 24912 anchors): serve 10 fp32 requests at score threshold 0.01
+     and train 12 bf16 steps at batch 32 as phase 9 does, then both kernels
+     timed at its shapes: the assignment at [32, 60, 24912], the mining pool
+     [32, 768] of [32, 24912] and the decode pool [20, 512] of [20, 24912];
+ 11. YOLOv2 (``drivers/testYOLOv2.py``: 480x480, 5 priors, 1125 decode rows)
+     and 12. YOLOv3 (``drivers/testYOLOv3.py``: 448x448, 3 heads of 3 priors,
+     12348 decode rows), each in turn: serve 10 fp32 requests (BatchNorm
+     statistics from 4 seeded images where the initial ones let the head
+     outputs run away; the script's score threshold 0.5 where a class row
+     then holds more than the pool's 512 candidates, else 0.01), exactly one
+     NMS launch and no assignment a request, decode with the kernel == with
+     the plain version, the network against the CPU; train 12 bf16 steps
+     (batch 32 and 12, lr 0.005 and 0.001) with no kernel launch at all, a
+     finite and falling loss, a profiled step and peak memory; then the NMS
+     kernel's two designs and the whole pool call timed on a request's decode
+     pool, [20, 512] of [20, 1125] and of [20, 12348].
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -608,7 +625,7 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
         raise AssertionError("the serving path must launch the NMS kernel's sorted scan "
                              "once per request and no assignment")
     n_dets = [len(r[0]) for r in results]
-    n_classes = model.num_classes - 1
+    n_classes = getattr(model, "raw_classes", model.num_classes - 1)  # YOLO: none
     for scores, boxes, cid in results:
         if not (np.isfinite(scores).all() and np.isfinite(boxes).all()):
             raise AssertionError("non-finite detections")
@@ -764,7 +781,7 @@ def run_epoch(model, images, gt, warmup: int, lr: float = 0.01):
     steps = len(writer.losses)
     losses = warm + [float(x) for x in writer.losses]
     return dict(losses=losses, mean=mean, counts=counts, steps=steps,
-                images_per_s=TRAIN_BATCH * steps / wall,
+                images_per_s=model.batch_size * steps / wall,
                 step_ms=start.elapsed_time(end) / steps)
 
 
@@ -1406,11 +1423,11 @@ def phase_refine_train(dev, name, n_steps=10, warmup=2):
     return dict(run=run, captured=captured)
 
 
-def phase_refine_kernels(name, serve_args, captured):
-    """Both kernels at the family's shapes against their plain versions,
-    timed: the assignment at [32, 60, 6375] and the mining pool [32, 768] of
-    [32, 6375] on a train step's inputs, the decode pool [20, 512] of
-    [20, 6375] on a request's."""
+def phase_family_kernels(name, serve_args, captured):
+    """Both kernels at a family's shapes against their plain versions,
+    timed: the assignment (RefineDet/PFPNet [32, 60, 6375], SSD512 [32, 60,
+    24912]) and the mining pool ([32, 768] of the anchors) on a train step's
+    inputs, the decode pool ([20, 512] of the anchors) on a request's."""
     assign = assign_timing(captured["assign"])
     log(f"{name} assign {tuple(captured['assign'][2].shape)} x "
         f"{captured['assign'][3].shape[0]} anchors: kernel == plain, "
@@ -1424,8 +1441,9 @@ def phase_refine_kernels(name, serve_args, captured):
     return dict(assign=assign, mining_pool=mining, decode_pool=decode)
 
 
-def refine_records(serve, train, kern, n_requests):
-    """The family's entries of the kernels' JSON record."""
+def family_records(serve, train, kern, n_requests):
+    """A family's entries of the kernels' JSON record (families with the
+    assignment, mining and a decode pool)."""
     s_counts, t_counts = serve["counts"], train["run"]["counts"]
     steps = train["run"]["steps"]
     pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
@@ -1442,6 +1460,257 @@ def refine_records(serve, train, kern, n_requests):
               "launches_per_request": s_counts["assign"] / n_requests,
               **{k: kern["assign"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                 "bound_by")}}
+    return nms, assign
+
+
+# --------------------------------------------------------------- SSD512
+# the SSD512 training script's config (drivers/testSSD512.py); no VGG-16 file
+SSD512_CONFIG = {
+    "mode": "train", "data_format": "channels_last", "num_classes": 20,
+    "weight_decay": 1e-4, "keep_prob": 0.5, "batch_size": 32,
+    "nms_score_threshold": 0.5, "nms_max_boxes": 20, "nms_iou_threshold": 0.5,
+    "pretraining_weight": None, "compute_dtype": "bfloat16", "hard_neg_cap": 384,
+    "seed": 0}
+SSD512_SIZE = 512
+SSD512_ANCHORS = 24912
+
+
+def ssd512_model(dev, provider=None, **overrides):
+    from tpudet_torch.models import SSD512
+
+    t0 = time.perf_counter()
+    model = SSD512(dict(SSD512_CONFIG, **overrides), provider)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log(f"SSD512 ({model.mode}, {model.compute_dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, "
+        f"{model.anchors.yx.shape[0]} anchors")
+    if model.device.type != dev.type:
+        raise AssertionError("SSD512 must default to the card")
+    if SSD512_SIZE == 512 and model.anchors.yx.shape[0] != SSD512_ANCHORS:
+        raise AssertionError(f"SSD512 must have {SSD512_ANCHORS} anchors")
+    return model
+
+
+def phase_ssd512(dev, n_requests=10, n_steps=10, warmup=2):
+    """SSD512 at its training script's config: serve ``n_requests`` fp32
+    requests at score threshold 0.01 (the softmax of random weights sits near
+    1/21, under the script's 0.5): one NMS launch (the sorted scan on the
+    decode pool) and no assignment a request; train 12 bf16 steps at batch
+    32, lr 0.01, on one fixed batch: a finite, falling loss, one assignment
+    and one or two NMS launches a step, ``ssd_loss`` with the kernels == with
+    the plain versions; then both kernels at its shapes, timed."""
+    import numpy as np
+    import torch
+
+    model = ssd512_model(dev, mode="test", compute_dtype="float32",
+                         nms_score_threshold=0.01)
+    serve = serve_requests(dev, model, SSD512_SIZE, n_requests, network_vs_cpu_normwise)
+    counts = serve["counts"]
+    if (counts["sorted_scan"] != n_requests or counts["assign"]
+            or not n_requests <= counts["nms_rows"] <= 2 * n_requests):
+        raise AssertionError(f"SSD512 serving: expected one sorted scan (and a full-width "
+                             f"rerun when a pool runs out) and no assignment a request, "
+                             f"got {counts}")
+    del model
+    torch.cuda.empty_cache()
+
+    images, gt = retina_batch(7, TRAIN_BATCH, SSD512_SIZE)
+    log(f"SSD512 train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = ssd512_model(dev, feed((images, gt), n_steps, TRAIN_BATCH),
+                         batch_size=TRAIN_BATCH)
+    run = run_epoch(model, images, gt, warmup)
+    counts, steps, losses = run["counts"], run["steps"], run["losses"]
+    log(f"SSD512 bf16: {warmup} warm-up steps + {steps} in train_one_epoch; kernel "
+        f"launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
+    if (steps != n_steps or counts["assign"] != steps
+            or not steps <= counts["nms_rows"] <= 2 * steps
+            or counts["sorted_scan"] != steps):
+        raise AssertionError(f"the SSD512 train path must launch the assignment kernel "
+                             f"once a step and the NMS kernel's sorted scan once a step "
+                             f"(and the per-pick kernel when a pool runs out): {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on one batch: {losses}")
+    log(f"SSD512 bf16 train: {run['images_per_s']:.1f} images/s by the host clock, "
+        f"{run['step_ms']:.3f} ms/step by CUDA events, epoch mean {run['mean']:.4f}")
+    captured = loss_kernel_vs_plain(model, images, gt)
+    run["profile"] = profile_step(model, images, gt)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"SSD512 peak device memory {run['peak_gib']:.2f} GiB (bf16 training)")
+    del model
+    torch.cuda.empty_cache()
+    train = dict(run=run, captured=captured)
+    kern = phase_family_kernels("SSD512", serve["kernel_args"], captured)
+    return dict(serve=serve, train=train, kernels=kern,
+                records=family_records(serve, train, kern, n_requests))
+
+
+# --------------------------------------------------------------- YOLOv2 / YOLOv3
+# the training scripts' config (drivers/testYOLOv2.py, drivers/testYOLOv3.py)
+YOLO_CONFIGS = {
+    "YOLOv2": {
+        "mode": "train", "is_pretraining": False, "data_shape": [480, 480, 3],
+        "num_classes": 20, "weight_decay": 1e-4, "keep_prob": 0.5,
+        "data_format": "channels_last", "batch_size": 32, "coord_scale": 1,
+        "noobj_scale": 1, "obj_scale": 5.0, "class_scale": 1.0,
+        "nms_score_threshold": 0.5, "nms_max_boxes": 10, "nms_iou_threshold": 0.5,
+        "rescore_confidence": False,
+        "priors": [[1.08, 1.19], [3.42, 4.41], [6.63, 11.38], [9.42, 5.11],
+                   [16.62, 10.52]],
+        "compute_dtype": "bfloat16", "seed": 0},
+    "YOLOv3": {
+        "mode": "train", "data_shape": [448, 448, 3], "num_classes": 20,
+        "weight_decay": 5e-4, "keep_prob": 0.5, "data_format": "channels_last",
+        "batch_size": 12, "coord_scale": 1, "noobj_scale": 1, "obj_scale": 5.0,
+        "class_scale": 1.0, "num_priors": 3,
+        "nms_score_threshold": 0.5, "nms_max_boxes": 10, "nms_iou_threshold": 0.5,
+        "priors": [[[10.0, 13.0], [16, 30.0], [33.0, 23.0]],
+                   [[30.0, 61.0], [62.0, 45.0], [59.0, 119.0]],
+                   [[116.0, 90.0], [156.0, 198.0], [373.0, 326.0]]],
+        "compute_dtype": "bfloat16", "seed": 0}}
+YOLO_RUNS = {  # name: (the script's lr, batch, input size, decode rows, key)
+    "YOLOv2": (0.005, TRAIN_BATCH, 480, 1125, "yolov2"),
+    "YOLOv3": (0.001, 12, 448, 12348, "yolov3")}
+YOLO_POOL = 512  # the decode pool: max(2 * nms_max_boxes, 512)
+YOLO_RUNAWAY = 20.0  # |head output| past which exp(hw) and the boxes run away
+
+
+def yolo_model(name, dev, provider=None, **overrides):
+    from tpudet_torch import models
+
+    t0 = time.perf_counter()
+    model = getattr(models, name)(dict(YOLO_CONFIGS[name], **overrides), provider)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log(f"{name} ({model.mode}, {model.compute_dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, input "
+        f"{model.data_shape_hw}")
+    if model.device.type != dev.type:
+        raise AssertionError(f"{name} must default to the card")
+    return model
+
+
+def yolo_candidates(model, outputs, threshold):
+    """Candidates a class row holds at ``threshold``: decoded confidences of
+    one image's head outputs, ``conf >= threshold`` counted per class."""
+    import torch
+
+    from tpudet_torch.heads import yolo as yolo_head
+
+    heads = [o[0] for o in leaves(outputs)]
+    priors = ([model.priors_hw] if hasattr(model, "priors_hw")
+              else model.priors_per_head)
+    conf = torch.cat([yolo_head._decode_boxes(h, p, model.raw_classes, 1.0,
+                                              model.consistent)[1]
+                      for h, p in zip(heads, priors)], 0)
+    return (conf >= threshold).sum(0)
+
+
+def phase_yolo_serve(dev, name, n_requests=10):
+    """``name`` at its training script's config in test mode, fp32. The
+    BatchNorm statistics come from 4 seeded images where the initial ones
+    (mean 0, var 1) let the eval-mode head outputs run away. The script's
+    score threshold 0.5 is kept if a class row then holds more than the
+    512-wide pool's candidates; otherwise 0.01, so that the pool and its
+    exhaustion check really run. One NMS launch (the sorted scan) and no
+    assignment a request."""
+    import numpy as np
+    import torch
+
+    _, _, size, rows, _ = YOLO_RUNS[name]
+    model = yolo_model(name, dev, mode="test", compute_dtype="float32")
+    rng = np.random.default_rng(11)
+    probe = model._images_to_device(rng.uniform(0, 255, (1, size, size, 3))
+                                    .astype(np.float32))
+    with torch.inference_mode():
+        peak = max(float(o.abs().max()) for o in leaves(model.net.eval()(
+            model._preprocess(probe))))
+    calibrated = peak > YOLO_RUNAWAY
+    if calibrated:
+        calibrate_batchnorm(model, rng.uniform(0, 255, (4, size, size, 3))
+                            .astype(np.float32))
+    with torch.inference_mode():
+        outputs = model.net(model._preprocess(probe))
+        after = max(float(o.abs().max()) for o in leaves(outputs))
+        at_half = yolo_candidates(model, outputs, 0.5)
+        if int(at_half.max()) <= YOLO_POOL:
+            model.nms_score_threshold = 0.01
+        chosen = yolo_candidates(model, outputs, model.nms_score_threshold)
+    log(f"{name} serve: max |head output| {peak:.3g} with the initial BatchNorm "
+        f"statistics{f', {after:.3g} after taking them from 4 images' if calibrated else ''}"
+        f"; candidates a class row holds of {rows}: at 0.5 max {int(at_half.max())}, "
+        f"min {int(at_half.min())}; score threshold {model.nms_score_threshold}: "
+        f"{chosen.tolist()}")
+    out = serve_requests(dev, model, size, n_requests, network_vs_cpu_normwise)
+    counts = out["counts"]
+    if (counts["nms_rows"] != n_requests or counts["sorted_scan"] != n_requests
+            or counts["assign"]):
+        raise AssertionError(f"{name} serving: expected exactly one NMS launch (the "
+                             f"sorted scan) and no assignment a request, got {counts}")
+    boxes, scores = out["kernel_args"][:2]
+    if tuple(scores.shape) != (20, rows):
+        raise AssertionError(f"{name} decode rows {tuple(scores.shape)}, expected "
+                             f"(20, {rows})")
+    out.update(score_threshold=model.nms_score_threshold, calibrated=calibrated,
+               head_peak=peak, head_peak_after=after, candidates=chosen.tolist(),
+               candidates_at_half=at_half.tolist())
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_yolo_train(dev, name, n_steps=10, warmup=2):
+    """The training script's config: its batch (32 / 12), bf16, its lr, on
+    one fixed batch through train_one_epoch; no assignment and no NMS launch
+    a step."""
+    import numpy as np
+    import torch
+
+    lr, batch, size, _, _ = YOLO_RUNS[name]
+    images, gt = retina_batch(12, batch, size)
+    log(f"{name} train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = yolo_model(name, dev, feed((images, gt), n_steps, batch), batch_size=batch)
+    run = run_epoch(model, images, gt, warmup, lr)
+    counts, steps, losses = run["counts"], run["steps"], run["losses"]
+    log(f"{name} bf16: {warmup} warm-up steps + {steps} in train_one_epoch at lr {lr}, "
+        f"batch {batch}; kernel launches in the epoch {counts}; losses "
+        f"{[round(x, 4) for x in losses]}")
+    if steps != n_steps or counts["assign"] or counts["nms_rows"]:
+        raise AssertionError(f"the {name} train path launches no kernel: {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on one batch: {losses}")
+    log(f"{name} bf16 train: {run['images_per_s']:.1f} images/s by the host clock, "
+        f"{run['step_ms']:.3f} ms/step by CUDA events, epoch mean {run['mean']:.4f}")
+    run["profile"] = profile_step(model, images, gt, lr)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{name} peak device memory {run['peak_gib']:.2f} GiB (bf16 training)")
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def yolo_records(serve, run, pool, n_requests):
+    """A YOLO family's entries of the kernels' JSON record: the decode pool's
+    NMS, and no assignment."""
+    s_counts, t_counts = serve["counts"], run["counts"]
+    pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
+                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")
+    nms = {"launches": s_counts["nms_rows"] + t_counts["nms_rows"],
+           "launches_per_request": s_counts["nms_rows"] / n_requests,
+           "launches_per_step": t_counts["nms_rows"] / run["steps"],
+           "launches_by_path": {k: s_counts[k] + t_counts[k]
+                                for k in ("sorted_scan", "per_pick")},
+           "score_threshold": serve["score_threshold"],
+           "decode_pool": {k: pool[k] for k in pool_keys}}
+    assign = {"launches": s_counts["assign"] + t_counts["assign"],
+              "launches_per_request": s_counts["assign"] / n_requests,
+              "launches_per_step": t_counts["assign"] / run["steps"]}
     return nms, assign
 
 
@@ -1521,9 +1790,41 @@ def main() -> int:
     for name, (_, _, key) in REFINE_FAMILIES.items():
         f_serve = phase_refine_serve(dev, name, n_requests)
         f_train = phase_refine_train(dev, name)
-        f_kern = phase_refine_kernels(name, f_serve["kernel_args"], f_train["captured"])
+        f_kern = phase_family_kernels(name, f_serve["kernel_args"], f_train["captured"])
         refine[key] = dict(serve=f_serve, train=f_train, kernels=f_kern,
-                           records=refine_records(f_serve, f_train, f_kern, n_requests))
+                           records=family_records(f_serve, f_train, f_kern, n_requests))
+    # 10. SSD512: serve, train, both kernels at its shapes
+    ssd512 = phase_ssd512(dev, n_requests)
+
+    # 11-12. YOLOv2 and YOLOv3: serve, train, the NMS kernel on the decode pool
+    yolo = {}
+    for name, (_, _, _, _, key) in YOLO_RUNS.items():
+        y_serve = phase_yolo_serve(dev, name, n_requests)
+        y_run = phase_yolo_train(dev, name)
+        y_pool = nms_pool_timing(y_serve["kernel_args"])
+        log_pool(f"{name}'s decode pool", y_pool)
+        yolo[key] = dict(serve=y_serve, run=y_run, pool=y_pool,
+                         records=yolo_records(y_serve, y_run, y_pool, n_requests))
+    log(json.dumps({key: {
+        "serve_p50_ms": f["serve"]["p50"], "serve_ms": f["serve"]["latencies"],
+        "serve_counts": f["serve"]["counts"], "network_ms": f["serve"]["network_ms"],
+        "decode_ms": f["serve"]["decode_ms"],
+        "network_vs_cpu": f["serve"]["network_vs_cpu"],
+        **{k: f["serve"][k] for k in ("score_threshold", "calibrated", "head_peak",
+                                      "head_peak_after", "candidates")},
+        "train_bf16": {k: f["run"][k] for k in (
+            "images_per_s", "step_ms", "losses", "counts", "peak_gib", "profile")},
+        "decode_pool": f["pool"]} for key, f in yolo.items()}))
+    log(json.dumps({"ssd512": {
+        "serve_p50_ms": ssd512["serve"]["p50"], "serve_ms": ssd512["serve"]["latencies"],
+        "serve_counts": ssd512["serve"]["counts"],
+        "network_ms": ssd512["serve"]["network_ms"],
+        "decode_ms": ssd512["serve"]["decode_ms"],
+        "network_vs_cpu": ssd512["serve"]["network_vs_cpu"],
+        "train_bf16": {k: ssd512["train"]["run"][k] for k in (
+            "images_per_s", "step_ms", "losses", "counts", "peak_gib", "profile")},
+        "kernels": ssd512["kernels"]}}))
+
     log(json.dumps({key: {
         "serve_p50_ms": f["serve"]["p50"], "serve_ms": f["serve"]["latencies"],
         "serve_counts": f["serve"]["counts"], "network_ms": f["serve"]["network_ms"],
@@ -1553,7 +1854,9 @@ def main() -> int:
          "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
          "launches": (serve["counts"]["nms_rows"] + counts["nms_rows"]
                       + r_serve["counts"]["nms_rows"] + r_counts["nms_rows"]
-                      + sum(f["records"][0]["launches"] for f in refine.values())),
+                      + sum(f["records"][0]["launches"] for f in refine.values())
+                      + ssd512["records"][0]["launches"]
+                      + sum(f["records"][0]["launches"] for f in yolo.values())),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -1599,11 +1902,14 @@ def main() -> int:
                  "shape")}},
          # tpudet's per-image kernel's case: per-row boxes [5, 300, 4]
          "per_row_boxes": timings["per_row_boxes"],
-         **{key: f["records"][0] for key, f in refine.items()}},
+         **{key: f["records"][0] for key, f in refine.items()},
+         "ssd512": ssd512["records"][0],
+         **{key: f["records"][0] for key, f in yolo.items()}},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
-                      + sum(f["records"][1]["launches"] for f in refine.values())),
+                      + sum(f["records"][1]["launches"] for f in refine.values())
+                      + ssd512["records"][1]["launches"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -1616,7 +1922,9 @@ def main() -> int:
              "launches_per_request": r_serve["counts"]["assign"] / n_requests,
              **{k: r_kern["assign"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                  "bound_by")}},
-         **{key: f["records"][1] for key, f in refine.items()}},
+         **{key: f["records"][1] for key, f in refine.items()},
+         "ssd512": ssd512["records"][1],
+         **{key: f["records"][1] for key, f in yolo.items()}},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -239,3 +239,112 @@ def test_out_of_range_class_id_gives_nan_on_the_card(cuda_device, family):
     x = torch.arange(8.0, device=cuda_device)
     assert float((x * 2).sum()) == 56.0
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ YOLO / SSD512
+V2_PRIORS = [[1.08, 1.19], [3.42, 4.41], [6.63, 11.38], [9.42, 5.11], [16.62, 10.52]]
+V3_PRIORS = [[[10.0, 13.0], [16, 30.0], [33.0, 23.0]],
+             [[30.0, 61.0], [62.0, 45.0], [59.0, 119.0]],
+             [[116.0, 90.0], [156.0, 198.0], [373.0, 326.0]]]
+
+
+def _yolo_heads(family, b, seed):
+    """NCHW head tensors at the training scripts' sizes: YOLOv2 480 (15x15, 5 priors),
+    YOLOv3 448 (14/28/56, 3 priors), 20 classes."""
+    rng = np.random.default_rng(seed)
+    grids, k = ((15,), 5) if family == "v2" else ((14, 28, 56), 3)
+    return [torch.from_numpy(rng.normal(0, 1.5, (b, k * 25, s, s)).astype(np.float32))
+            for s in grids]
+
+
+def _yolo_decode(family, heads, consistent=False):
+    from tpudet_torch.heads import yolo as t_yolo
+    from tpudet_torch.models.yolo import priors_per_head
+
+    if family == "v2":
+        return t_yolo.yolov2_decode(heads[0][0], V2_PRIORS, 20, 32.0, 0.5, 0.5, 10,
+                                    consistent=consistent)
+    return t_yolo.yolov3_decode([h[0] for h in heads], priors_per_head(V3_PRIORS, consistent),
+                                20, 0.5, 0.5, 10, consistent=consistent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("consistent", [False, True])
+@pytest.mark.parametrize("family", ["v2", "v3"])
+def test_yolo_decode_pool_equals_plain(cuda_device, monkeypatch, family, consistent):
+    """One image's decode on the card at the training script's thresholds: the pool
+    [20, 512] of [20, 1125] (YOLOv2) or of [20, 12348] (YOLOv3) through the
+    sorted scan, one NMS launch, equal to the plain version."""
+    heads = [h.to(cuda_device) for h in _yolo_heads(family, 1, 3)]
+    before = (nms_kernel.launches, dict(nms_kernel.launches_by_path))
+    calls = []
+    real = nms_kernel.nms_rows
+    monkeypatch.setattr(nms_kernel, "nms_rows",
+                        lambda *a: calls.append(tuple(a[1].shape)) or real(*a))
+    got = _yolo_decode(family, heads, consistent)
+    torch.cuda.synchronize()
+    assert calls == [(20, 1125 if family == "v2" else 12348)]
+    assert nms_kernel.launches == before[0] + 1
+    assert nms_kernel.launches_by_path["sorted_scan"] == before[1]["sorted_scan"] + 1
+    monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
+    want = _yolo_decode(family, heads, consistent)
+    assert int(want[3].sum()) > 20
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", [-1, 20, 25])
+@pytest.mark.parametrize("family", ["v2", "v3"])
+def test_yolo_out_of_range_label_gives_a_finite_loss_on_the_card(cuda_device, family,
+                                                                 label):
+    """A valid gt whose class id is outside [0, 20) adds a zero one-hot row: the
+    loss is finite and equal to the CPU's, nothing asserts on the card, and
+    the context stays usable after."""
+    from tpudet_torch.heads import yolo as t_yolo
+    from tpudet_torch.models.yolo import priors_per_head
+
+    size = 480.0 if family == "v2" else 448.0
+    heads = _yolo_heads(family, 2, 4)
+    gt = torch.from_numpy(rand_gt(np.random.default_rng(5), 2, 60, 10, size=size,
+                                  n_valid_min=2))
+    gt[0, 0, 4] = label
+
+    def loss(hs, g):
+        if family == "v2":
+            return t_yolo.yolov2_loss(hs[0], V2_PRIORS, g, 20, 32.0, (1.0, 1.0, 5.0, 1.0))
+        return t_yolo.yolov3_loss(hs, priors_per_head(V3_PRIORS), g, 20,
+                                  (1.0, 1.0, 5.0, 1.0))
+
+    on_card = loss([h.to(cuda_device) for h in heads], gt.to(cuda_device))
+    assert torch.isfinite(on_card)
+    np.testing.assert_allclose(float(on_card), float(loss(heads, gt)), rtol=1e-5)
+    x = torch.arange(8.0, device=cuda_device)
+    assert float((x * 2).sum()) == 56.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ssd512_loss_with_kernels_equals_plain(cuda_device, monkeypatch):
+    """``ssd_loss`` over SSD512's 24,912 anchors at batch 4 on the card: one
+    assignment launch and the mining pool [4, 768] of [4, 24912], equal
+    exactly to the loss with both plain versions."""
+    from tpudet_torch.models.ssd import SSD512
+
+    shapes = _ssd_feat_shapes(512, SSD512.extra_strides)
+    anc = t_ssd.build_anchors(512, shapes, SSD512.aspect_ratios, SSD512.scale_pairs,
+                              device=cuda_device)
+    rng = np.random.default_rng(6)
+    heads = [torch.from_numpy(rng.normal(0, s, (4, 24912, c)).astype(np.float32))
+             .to(cuda_device) for s, c in ((2.0, 21), (0.5, 2), (0.5, 2))]
+    gt = torch.from_numpy(rand_gt(rng, 4, 60, 10, size=512.0, n_valid_min=1)).to(
+        cuda_device)
+    before = (assign_kernel.launches, nms_kernel.launches)
+    with_kernels = t_ssd.ssd_loss(*heads, anc, gt, 21, neg_sel_cap=384)
+    torch.cuda.synchronize()
+    assert (assign_kernel.launches - before[0], nms_kernel.launches - before[1] >= 1) == (
+        1, True)
+    monkeypatch.setattr(assign_kernel, "assign_anchors", t_matching.assign_plain)
+    monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
+    with_plain = t_ssd.ssd_loss(*heads, anc, gt, 21, neg_sel_cap=384)
+    assert torch.isfinite(with_kernels) and torch.equal(with_kernels, with_plain)

@@ -38,22 +38,33 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 # ------------------------------------------------------------ package rules
-def _port_sources():
-    return sorted((REPO / "tpudet_torch").rglob("*.py"))
+def _imports(path):
+    """The top-level names of every module ``path`` imports."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    return names
 
 
-def test_port_sources_never_import_jax_flax_or_tpudet():
-    bad = []
-    for path in _port_sources():
-        for node in ast.walk(ast.parse(path.read_text())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            bad += [f"{path.name}: {n}" for n in names
-                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "tpudet")]
+def _sources(group):
+    """``port``: every file of ``tpudet_torch``. ``chip_smoke``: the script and
+    the helpers of ``tests/`` it imports (it runs where JAX is absent)."""
+    if group == "port":
+        return sorted((REPO / "tpudet_torch").rglob("*.py"))
+    script = REPO / "chip_smoke.py"
+    helpers = sorted(REPO / "tests" / f"{n}.py" for n in set(_imports(script))
+                     if (REPO / "tests" / f"{n}.py").is_file())
+    assert {p.name for p in helpers} >= {"torch_nms_cases.py", "torch_assign_cases.py"}
+    return [script, *helpers]
+
+
+@pytest.mark.parametrize("group", ["port", "chip_smoke"])
+def test_port_sources_never_import_jax_flax_or_tpudet(group):
+    bad = [f"{path.name}: {n}" for path in _sources(group) for n in _imports(path)
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "tpudet")]
     assert not bad, bad
 
 

@@ -1,6 +1,8 @@
 """Model classes with tpudet's public API: SSD300, SSD512, RetinaNet,
-RefineDet320 (alias RefineDet) and PFPNetR, trained and served."""
+RefineDet320 (alias RefineDet), PFPNetR, YOLOv2 and YOLOv3, trained and
+served."""
 
 from tpudet_torch.models.refinedet import PFPNetR, RefineDet, RefineDet320  # noqa: F401
 from tpudet_torch.models.retinanet import RetinaNet  # noqa: F401
 from tpudet_torch.models.ssd import SSD300, SSD512  # noqa: F401
+from tpudet_torch.models.yolo import YOLOv2, YOLOv3  # noqa: F401

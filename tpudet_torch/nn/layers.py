@@ -161,7 +161,11 @@ class BatchNorm(nn.Module):
 
     Train mode (``module.train()``) normalises with the batch statistics,
     reduced in float32: the mean, and flax's fast biased variance
-    ``max(0, E[x^2] - E[x]^2)``, which the output uses too. The forward pass
+    ``max(0, E[x^2] - E[x]^2)``, which the output uses too. Each mean is a sum
+    times ``1/n``, as XLA computes ``jnp.mean`` (``torch.mean`` divides by
+    ``n``, and where a level holds a few values a channel, as at a 1x1 level
+    of batch 2, ``E[x^2] - E[x]^2`` cancels and the last bit of the mean
+    moves the gradient below it by ~0.3%). The forward pass
     also updates the running statistics, as flax's ``mutable=["batch_stats"]``
     does: ``r = 0.99 r + 0.01 batch`` for mean and var, with no gradient.
     Eval mode normalises with the running statistics. Either way the output is
@@ -180,8 +184,9 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             dims = [0, *range(2, x.dim())]
-            mean = torch.mean(x32, dims)
-            var = torch.clamp(torch.mean(x32 * x32, dims) - mean * mean, min=0.0)
+            inv_n = 1.0 / (x32.numel() // x32.shape[1])
+            mean = torch.sum(x32, dims) * inv_n
+            var = torch.clamp(torch.sum(x32 * x32, dims) * inv_n - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -236,11 +241,9 @@ class BNActConv(nn.Module):
         self.activation = activation
         self.conv = SameConv2d(in_ch, filters, kernel, stride, generator=generator,
                                dtype=dtype)
-        with torch.no_grad():
-            std = math.sqrt(2.0 / (in_ch * kernel * kernel)) / TRUNC_NORMAL_STD
-            nn.init.trunc_normal_(self.conv.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            if bias_init_const is not None:
+        he_truncated_normal_(self.conv.weight, generator)
+        if bias_init_const is not None:
+            with torch.no_grad():
                 self.conv.bias.fill_(bias_init_const)
 
     def forward(self, x):
@@ -252,6 +255,18 @@ class BNActConv(nn.Module):
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def he_truncated_normal_(weight: torch.Tensor,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``variance_scaling(2.0, "fan_in", "truncated_normal")`` drawn in
+    place into an OIHW conv ``weight`` from the caller's generator: a normal
+    truncated at +-2 std, std ``sqrt(2 / fan_in)`` after the cut."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    std = math.sqrt(2.0 / fan_in) / TRUNC_NORMAL_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 Same formulas as tpudet's, written out rather than taken from ``torch.nn``
 (``torch.log_softmax`` sums in another way): elementwise and rowwise functions,
-with the reductions left to the callers. The focal, sigmoid and IoU losses come
-with the families that use them.
+with the reductions left to the callers. The focal and IoU losses come with
+the families that use them.
 """
 
 from __future__ import annotations
@@ -48,6 +48,25 @@ def ce_from_log_probs(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Te
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Sparse softmax CE per row: ``logits [..., C]``, ``labels [...]`` int."""
     return _logsumexp(logits) - take_last(logits, labels)
+
+
+def sigmoid_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0) - x t + log1p(exp(-|x|))`` elementwise
+    (``tf.nn.sigmoid_cross_entropy_with_logits``), spelled as tpudet spells it,
+    with JAX's gradients at ``x = 0``: ``torch.maximum`` splits a tie as
+    ``jnp.maximum`` does, and ``|x|`` is ``where(x >= 0, x, -x)``, whose
+    gradient there is 1 as ``jnp.abs``'s is (``torch.abs``'s is 0)."""
+    abs_x = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
+            + torch.log1p(torch.exp(-abs_x)))
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """float32 one-hot rows with ``jax.nn.one_hot``'s semantics: a label
+    outside ``[0, num_classes)``, a negative one included, gives a row of
+    zeros. (``F.one_hot`` raises on the CPU and asserts on the card.)"""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels[..., None].long() == classes).to(torch.float32)
 
 
 def weighted_mean(per_sample: torch.Tensor, sample_weight=None) -> torch.Tensor:
