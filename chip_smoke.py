@@ -69,7 +69,31 @@ Phases, each raising on failure (nothing is caught):
      (batch 32 and 12, lr 0.005 and 0.001) with no kernel launch at all, a
      finite and falling loss, a profiled step and peak memory; then the NMS
      kernel's two designs and the whole pool call timed on a request's decode
-     pool, [20, 512] of [20, 1125] and of [20, 12348].
+     pool, [20, 512] of [20, 1125] and of [20, 12348];
+ 13. FCOS at its training script's config (``drivers/testfcos.py``: 800x1200,
+     20 classes, the GroupNorm ResNet, 20017 locations): serve 10 fp32
+     requests at a score threshold chosen and logged from one probe image
+     (the prior bias puts both sigmoids near 0.01, so the script's 0.5
+     selects nothing on random weights), exactly one NMS launch (the sorted
+     scan on the pool [19, 512] of [19, 20017]: Q9 emits 19 classes) and no
+     assignment a request, decode with the kernel == with the plain version,
+     the network against the CPU; train 12 bf16 steps at batch 8 at lr 1e-3
+     (tpudet's warm-up lr: at the script's 0.01 the loss of random weights
+     runs away) with no kernel launch, a finite and falling loss, a profiled
+     step and peak memory; then the NMS kernel's two designs and the whole
+     pool call timed on a request's pool, and one decode forced to run out
+     of its pool, rerun at full width by the per-pick kernel == the plain
+     version;
+ 14. CenterNet at its training script's config (``drivers/testcenternet.py``:
+     384x384, 20 classes, DLA, TF-style Adam): serve 10 fp32 requests at the
+     script's score threshold 0.1 and top-k 100 (BatchNorm statistics from 4
+     seeded images where the initial ones let the heads run away), no kernel
+     launch, the decode on the card == the decode on the CPU on the same
+     head outputs, the network against the CPU; train 12 bf16 steps at batch
+     15, lr 0.001, with no kernel launch, a finite and falling loss, a
+     profiled step and peak memory; one Adam update on the card against the
+     CPU's on the same gradients; out-of-range labels leave the loss finite
+     and the context usable.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -591,25 +615,17 @@ def network_vs_cpu(model, x, outputs):
         f"over outputs {worst:.2e}")
 
 
-def serve_requests(dev, model, size, n_requests, check_network=None):
-    """``n_requests`` seeded size x size images through ``test_one_image``, with
-    the NMS counts set to 0 just before and read just after; then one
-    request's decode with the kernel == with the plain version on the card,
-    the network against the same weights on the CPU (``check_network``,
-    default :func:`network_vs_cpu`), and a profile."""
-    import numpy as np
+def timed_requests(model, images):
+    """``images`` through ``test_one_image`` after two warm-up requests (cuDNN
+    handles, the kernel library), with the kernels' counts set to 0 just
+    before and read just after: latencies (ms), results, counts."""
     import torch
 
     from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 
-    rng = np.random.default_rng(1)
-    images = [rng.uniform(0, 255, (1, size, size, 3)).astype(np.float32)
-              for _ in range(n_requests)]
-    for img in images[:2]:  # warm-up: cuDNN handles, the kernel library
+    for img in images[:2]:
         model.test_one_image(img)
     torch.cuda.synchronize()
-
-    # the main path, counted
     reset_nms_counts()
     assign_kernel.launches = 0
     latencies, results = [], []
@@ -619,13 +635,17 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
         latencies.append((time.perf_counter() - t) * 1e3)
     counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path,
               "assign": assign_kernel.launches}
-    log(f"served {n_requests} requests; kernel launches {counts}")
-    if (counts["nms_rows"] < n_requests or counts["sorted_scan"] < n_requests
-            or counts["assign"]):
-        raise AssertionError("the serving path must launch the NMS kernel's sorted scan "
-                             "once per request and no assignment")
+    log(f"served {len(images)} requests; kernel launches {counts}")
+    return latencies, results, counts
+
+
+def check_detections(results, latencies, n_classes):
+    """Every request's detections finite and well formed, class ids in
+    ``[0, n_classes)``, some request with detections; logs and returns the
+    latency p50."""
+    import numpy as np
+
     n_dets = [len(r[0]) for r in results]
-    n_classes = getattr(model, "raw_classes", model.num_classes - 1)  # YOLO: none
     for scores, boxes, cid in results:
         if not (np.isfinite(scores).all() and np.isfinite(boxes).all()):
             raise AssertionError("non-finite detections")
@@ -638,6 +658,31 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
     p50 = statistics.median(latencies)
     log(f"detections per request {n_dets}; latency p50 {p50:.3f} ms, "
         f"min {min(latencies):.3f} ms, max {max(latencies):.3f} ms")
+    return p50
+
+
+def serve_requests(dev, model, size, n_requests, check_network=None):
+    """``n_requests`` seeded ``size`` (a side, or ``(h, w)``) images through
+    ``test_one_image``, with the NMS counts set to 0 just before and read
+    just after; then one request's decode with the kernel == with the plain
+    version on the card,
+    the network against the same weights on the CPU (``check_network``,
+    default :func:`network_vs_cpu`), and a profile."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    rng = np.random.default_rng(1)
+    images = [rng.uniform(0, 255, (1, *hw_of(size), 3)).astype(np.float32)
+              for _ in range(n_requests)]
+    latencies, results, counts = timed_requests(model, images)
+    if (counts["nms_rows"] < n_requests or counts["sorted_scan"] < n_requests
+            or counts["assign"]):
+        raise AssertionError("the serving path must launch the NMS kernel's sorted scan "
+                             "once per request and no assignment")
+    p50 = check_detections(results, latencies,
+                           getattr(model, "raw_classes", model.num_classes - 1))
 
     # one request's head outputs through decode with the kernel and with the
     # plain version, both on the card
@@ -683,6 +728,11 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
         f"{max_out}, thr {thr}")
     return dict(latencies=latencies, p50=p50, counts=counts, network_ms=fwd_ms,
                 decode_ms=dec_ms, network_vs_cpu=net_check, kernel_args=captured["args"])
+
+
+def hw_of(size):
+    """``(h, w)`` of a side or an ``(h, w)`` pair."""
+    return (size, size) if isinstance(size, int) else tuple(size)
 
 
 def reset_nms_counts():
@@ -999,6 +1049,57 @@ def nms_full_timing(args, plain_reps=2):
                 bound_by=b_by, picks=int(val.sum()), shape=list(scores.shape))
 
 
+def run_out_args(args, pool=512):
+    """A decode pool's NMS input (``serve_requests``' captured ``nms_rows``
+    call) with row 0's top ``pool + 8`` candidates made near-copies of one
+    box, so the pool runs out after its first pick and the rows rerun at
+    full width."""
+    import numpy as np
+    import torch
+
+    boxes, scores, ns, max_out, thr, _ = args
+    rng = np.random.default_rng(19)
+    idx = torch.from_numpy(rng.permutation(boxes.shape[0])[:pool + 8]).to(boxes.device)
+    ramp = torch.linspace(0, 0.5, pool + 8, device=boxes.device)
+    boxes, scores = boxes.clone(), scores.clone()
+    copy = torch.tensor([100.0, 100.0, 200.0, 220.0], device=boxes.device)
+    boxes[idx] = copy + ramp[:, None]
+    scores[0, idx] = 3.0 - 2.0 * ramp
+    return [boxes, scores, ns, max_out, thr]
+
+
+def pool_run_out(what, args):
+    """One decode pool call whose pool runs out (``args``: boxes, scores,
+    budgets, max_out, IoU threshold): the pool's sorted scan, then the
+    per-pick kernel at full width, == the plain version; the per-pick design
+    timed at full width."""
+    import torch
+
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    before = dict(nms_kernel.launches_by_path)
+    sel, val = nms_kernel.batched_greedy_nms_pretopk(*args)
+    reran = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    want = nms_ops.batched_greedy_nms(*args)
+    torch.cuda.synchronize()
+    if reran != {"sorted_scan": 1, "per_pick": 1}:
+        raise AssertionError(f"{what} run-out case: expected the pool's sorted scan, then "
+                             f"the full-width rerun, got {reran}")
+    if not nms_equal((sel, val), want):
+        raise AssertionError(f"{what} run-out case: pool with its rerun != plain version")
+    if int(val[0].sum()) < 2:
+        raise AssertionError(f"{what} run-out case: row 0 must pick beyond its pool")
+    full = nms_full_timing(args)
+    log(f"{what} NMS run-out case {tuple(args[1].shape)}: the pool ran out in row 0, the "
+        f"per-pick kernel reran at full width, == plain ({int(val.sum())} picks, row 0 "
+        f"{int(val[0].sum())}); per-pick at full width "
+        f"{[round(x, 4) for x in full['turns_ms']]} ms (device time "
+        f"{fmt_ms(full['device_ms'], 4)} ms), plain {full['plain_ms']:.4f} ms, bound "
+        f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
+    return full
+
+
 def log_pool(what, t):
     log(f"NMS on {what} {t['shape']} of {t['full_shape']} ({t['picks']} picks), in turns "
         f"per-pick/sorted/sorted/per-pick {[round(x, 5) for x in t['turns_ms']]} ms: "
@@ -1147,14 +1248,16 @@ def phase_retina_serve(dev, n_requests=10):
 
 
 def retina_batch(seed, b, size):
-    """One fixed batch: seeded uniform images, 1-10 VOC-like boxes an image
+    """One fixed batch: seeded uniform images of ``size`` (a side, or ``(h,
+    w)``), 1-10 VOC-like boxes an image (inside the ``min(h, w)`` square)
     padded to 60 rows."""
     import numpy as np
     from torch_assign_cases import rand_gt
 
     rng = np.random.default_rng(seed)
-    images = rng.uniform(0, 255, (b, size, size, 3)).astype(np.float32)
-    return images, rand_gt(rng, b, 60, 10, size=float(size), n_valid_min=1)
+    h, w = hw_of(size)
+    images = rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32)
+    return images, rand_gt(rng, b, 60, 10, size=float(min(h, w)), n_valid_min=1)
 
 
 def retina_loss_kernel_vs_plain(model, images, gt):
@@ -1246,9 +1349,6 @@ def phase_retina_kernels(dev, serve_args, assign_args):
     import torch
     from torch_nms_cases import retina_decode_case
 
-    from tpudet_torch.ops import nms as nms_ops
-    from tpudet_torch.ops.cuda import nms_kernel
-
     out = {}
     assign = assign_timing(assign_args)
     if not scratch_is_zero(dev):
@@ -1268,26 +1368,8 @@ def phase_retina_kernels(dev, serve_args, assign_args):
 
     anchors = torch.cat([assign_args[3], assign_args[4]], -1).cpu().numpy()
     case = retina_decode_case(anchors, run_out=True)
-    args = [torch.from_numpy(a).to(dev) for a in case[:3]] + list(case[3:])
-    before = dict(nms_kernel.launches_by_path)
-    sel, val = nms_kernel.batched_greedy_nms_pretopk(*args)
-    reran = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
-    want = nms_ops.batched_greedy_nms(*args)
-    torch.cuda.synchronize()
-    if reran != {"sorted_scan": 1, "per_pick": 1}:
-        raise AssertionError(f"run-out case: expected the pool's sorted scan, then the "
-                             f"full-width rerun, got {reran}")
-    if not nms_equal((sel, val), want):
-        raise AssertionError("run-out case: pool with its rerun != plain version")
-    if int(val[0].sum()) < 2:
-        raise AssertionError("run-out case: row 0 must pick beyond its pool")
-    full = nms_full_timing(args)
-    log(f"NMS run-out case {tuple(args[1].shape)}: the pool ran out in row 0, the "
-        f"per-pick kernel reran at full width, == plain ({int(val.sum())} picks, row 0 "
-        f"{int(val[0].sum())}); per-pick at full width "
-        f"{[round(x, 4) for x in full['turns_ms']]} ms (device time "
-        f"{fmt_ms(full['device_ms'], 4)} ms), plain {full['plain_ms']:.4f} ms, bound "
-        f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
+    full = pool_run_out("RetinaNet", [torch.from_numpy(a).to(dev) for a in case[:3]]
+                        + list(case[3:]))
     out["full_width"] = full
     return out
 
@@ -1661,24 +1743,18 @@ def phase_yolo_serve(dev, name, n_requests=10):
     return out
 
 
-def phase_yolo_train(dev, name, n_steps=10, warmup=2):
-    """The training script's config: its batch (32 / 12), bf16, its lr, on
-    one fixed batch through train_one_epoch; no assignment and no NMS launch
-    a step."""
+def train_without_kernels(name, model, images, gt, n_steps, warmup, lr):
+    """``warmup`` steps, then ``train_one_epoch`` of ``n_steps`` on one fixed
+    batch: no kernel launch at all, a finite and falling loss, a profiled
+    step and peak memory."""
     import numpy as np
     import torch
 
-    lr, batch, size, _, _ = YOLO_RUNS[name]
-    images, gt = retina_batch(12, batch, size)
-    log(f"{name} train batch: images {images.shape}, gt {gt.shape} with "
-        f"{int((gt[..., 0] >= 0).sum())} objects")
-    torch.cuda.reset_peak_memory_stats()
-    model = yolo_model(name, dev, feed((images, gt), n_steps, batch), batch_size=batch)
     run = run_epoch(model, images, gt, warmup, lr)
     counts, steps, losses = run["counts"], run["steps"], run["losses"]
-    log(f"{name} bf16: {warmup} warm-up steps + {steps} in train_one_epoch at lr {lr}, "
-        f"batch {batch}; kernel launches in the epoch {counts}; losses "
-        f"{[round(x, 4) for x in losses]}")
+    log(f"{name} {model.compute_dtype}: {warmup} warm-up steps + {steps} in "
+        f"train_one_epoch at lr {lr}, batch {model.batch_size}; kernel launches in the "
+        f"epoch {counts}; losses {[round(x, 4) for x in losses]}")
     if steps != n_steps or counts["assign"] or counts["nms_rows"]:
         raise AssertionError(f"the {name} train path launches no kernel: {counts}")
     if not all(np.isfinite(losses)):
@@ -1690,6 +1766,22 @@ def phase_yolo_train(dev, name, n_steps=10, warmup=2):
     run["profile"] = profile_step(model, images, gt, lr)
     run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"{name} peak device memory {run['peak_gib']:.2f} GiB (bf16 training)")
+    return run
+
+
+def phase_yolo_train(dev, name, n_steps=10, warmup=2):
+    """The training script's config: its batch (32 / 12), bf16, its lr, on
+    one fixed batch through train_one_epoch; no assignment and no NMS launch
+    a step."""
+    import torch
+
+    lr, batch, size, _, _ = YOLO_RUNS[name]
+    images, gt = retina_batch(12, batch, size)
+    log(f"{name} train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = yolo_model(name, dev, feed((images, gt), n_steps, batch), batch_size=batch)
+    run = train_without_kernels(name, model, images, gt, n_steps, warmup, lr)
     del model
     torch.cuda.empty_cache()
     return run
@@ -1712,6 +1804,293 @@ def yolo_records(serve, run, pool, n_requests):
               "launches_per_request": s_counts["assign"] / n_requests,
               "launches_per_step": t_counts["assign"] / run["steps"]}
     return nms, assign
+
+
+# --------------------------------------------------------------- FCOS
+# the FCOS training script's config (drivers/testfcos.py)
+FCOS_CONFIG = {
+    "mode": "train", "data_shape": [800, 1200, 3], "data_format": "channels_last",
+    "num_classes": 20, "weight_decay": 1e-4, "keep_prob": 0.5, "batch_size": 8,
+    "nms_score_threshold": 0.5, "nms_max_boxes": 10, "nms_iou_threshold": 0.45,
+    "compute_dtype": "bfloat16", "seed": 0}
+# tpudet's own warm-up lr at the script's 0.01 (the first segment of
+# scripts/train_convergence.py's FCOS schedules is 0.1x): at 0.01 from random
+# weights the loss runs away within a few steps (to NaN at 256x384, batch 4),
+# in the port and, step for step, in tpudet
+FCOS_LR = 1e-3
+FCOS_ROWS = 20017  # 100x150 + 50x75 + 25x38 + 13x19 + 7x10 locations
+FCOS_QUANTILE = 0.9  # the serving threshold: this quantile of a probe's scores
+
+
+def fcos_model(dev, provider=None, **overrides):
+    from tpudet_torch.models import FCOS
+
+    t0 = time.perf_counter()
+    model = FCOS(dict(FCOS_CONFIG, **overrides), provider)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log(f"FCOS ({model.mode}, {model.compute_dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, input "
+        f"{model.data_shape_hw}")
+    if model.device.type != dev.type:
+        raise AssertionError("FCOS must default to the card")
+    return model
+
+
+def fcos_scores(model, outputs):
+    """The decode's scores ``[C - 1, locations]`` of one image's outputs."""
+    import torch
+
+    return torch.cat([(torch.sigmoid(c[0]) * torch.sigmoid(p[0])).reshape(c.shape[1], -1)
+                      for c, _, p in outputs], 1)[:model.raw_classes - 1]
+
+
+def phase_fcos_serve(dev, n_requests=10):
+    """FCOS at its training script's config in test mode, fp32, at a score
+    threshold of the ``FCOS_QUANTILE`` quantile of a probe image's scores
+    (the prior bias puts both sigmoids near 0.01: the script's 0.5 selects
+    nothing). Exactly one NMS launch (the sorted scan on the pool) and no
+    assignment a request."""
+    import numpy as np
+    import torch
+
+    model = fcos_model(dev, mode="test", compute_dtype="float32")
+    hw = model.data_shape_hw
+    probe = model._images_to_device(np.random.default_rng(11).uniform(
+        0, 255, (1, *hw, 3)).astype(np.float32))
+    with torch.inference_mode():
+        conf = fcos_scores(model, model.net.eval()(model._preprocess(probe)))
+        thr = float(f"{float(torch.quantile(conf.flatten(), FCOS_QUANTILE)):.3g}")
+        at_half = int((conf >= 0.5).sum())
+        chosen = (conf >= thr).sum(1)
+    model.nms_score_threshold = thr
+    log(f"FCOS serve: the probe's scores span [{float(conf.min()):.3g}, "
+        f"{float(conf.max()):.3g}]; {at_half} candidates at the script's 0.5; score "
+        f"threshold {thr} (quantile {FCOS_QUANTILE}): candidates a class row holds of "
+        f"{conf.shape[1]}: {chosen.tolist()}")
+    out = serve_requests(dev, model, hw, n_requests, network_vs_cpu_normwise)
+    counts = out["counts"]
+    if (counts["nms_rows"] != n_requests or counts["sorted_scan"] != n_requests
+            or counts["assign"]):
+        raise AssertionError(f"FCOS serving: expected exactly one NMS launch (the sorted "
+                             f"scan) and no assignment a request, got {counts}")
+    scores = out["kernel_args"][1]
+    if tuple(scores.shape) != (model.raw_classes - 1, FCOS_ROWS):
+        raise AssertionError(f"FCOS decode rows {tuple(scores.shape)}, expected "
+                             f"({model.raw_classes - 1}, {FCOS_ROWS}) (Q9)")
+    out.update(score_threshold=thr, candidates=chosen.tolist(), candidates_at_half=at_half)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fcos_train(dev, n_steps=10, warmup=2):
+    import torch
+
+    b = FCOS_CONFIG["batch_size"]
+    images, gt = retina_batch(13, b, FCOS_CONFIG["data_shape"][:2])
+    log(f"FCOS train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = fcos_model(dev, feed((images, gt), n_steps, b))
+    run = train_without_kernels("FCOS", model, images, gt, n_steps, warmup, FCOS_LR)
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+# --------------------------------------------------------------- CenterNet
+# the CenterNet training script's config (drivers/testcenternet.py)
+CENTERNET_CONFIG = {
+    "mode": "train", "input_size": 384, "data_format": "channels_last",
+    "num_classes": 20, "weight_decay": 1e-4, "keep_prob": 0.5, "batch_size": 15,
+    "score_threshold": 0.1, "top_k_results_output": 100, "compute_dtype": "bfloat16",
+    "seed": 0}
+CENTERNET_LR = 0.001
+
+
+def centernet_model(dev, provider=None, **overrides):
+    from tpudet_torch.models import CenterNet
+
+    t0 = time.perf_counter()
+    model = CenterNet(dict(CENTERNET_CONFIG, **overrides), provider)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log(f"CenterNet ({model.mode}, {model.compute_dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, input "
+        f"{model.input_size}")
+    if model.device.type != dev.type:
+        raise AssertionError("CenterNet must default to the card")
+    return model
+
+
+def phase_centernet_serve(dev, n_requests=10):
+    """CenterNet at its training script's config in test mode, fp32, at its
+    score threshold 0.1 and top-k 100: no kernel launch a request; one
+    request's decode on the card == on the CPU on the same head outputs;
+    the network against the CPU; a profile."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.heads import centernet as center_head
+
+    model = centernet_model(dev, mode="test", compute_dtype="float32")
+    size = model.input_size
+    rng = np.random.default_rng(11)
+    probe = model._images_to_device(rng.uniform(0, 255, (1, size, size, 3))
+                                    .astype(np.float32))
+    with torch.inference_mode():
+        peak = max(float(o.abs().max()) for o in model.net.eval()(model._preprocess(probe)))
+    calibrated = peak > YOLO_RUNAWAY
+    if calibrated:
+        calibrate_batchnorm(model, rng.uniform(0, 255, (4, size, size, 3))
+                            .astype(np.float32))
+    with torch.inference_mode():
+        after = max(float(o.abs().max()) for o in model.net(model._preprocess(probe)))
+    taken = f", {after:.3g} after taking them from 4 images" if calibrated else ""
+    log(f"CenterNet serve: max |head output| {peak:.3g} with the initial BatchNorm "
+        f"statistics{taken}")
+
+    rng = np.random.default_rng(1)
+    images = [rng.uniform(0, 255, (1, size, size, 3)).astype(np.float32)
+              for _ in range(n_requests)]
+    latencies, results, counts = timed_requests(model, images)
+    if counts["nms_rows"] or counts["assign"]:
+        raise AssertionError(f"the CenterNet serving path launches no kernel: {counts}")
+    for scores, _, _ in results:
+        if (len(scores) > model.top_k_results_output
+                or (scores <= model.score_threshold).any()):
+            raise AssertionError("detections beyond top-k or at most the threshold")
+    p50 = check_detections(results, latencies, model.raw_classes)
+
+    x = torch.from_numpy(images[0].transpose(0, 3, 1, 2).copy()).to(dev)
+    with torch.inference_mode():
+        outputs = model.net(model._preprocess(x))
+
+        def decode():
+            return model._decode_outputs(outputs)
+
+        on_card = [t.cpu() for t in decode()]
+        on_cpu = center_head.centernet_decode(
+            *(t[0].cpu() for t in outputs), model.score_threshold,
+            model.top_k_results_output)
+        torch.cuda.synchronize()
+        # the picks, their order, boxes and classes exactly; the scores are
+        # sigmoids, which the two devices' libraries may round an ulp apart
+        for what, a, b in zip(("boxes", "class_id", "valid"), on_card[1:], on_cpu[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"CenterNet decode on the card != on the CPU: {what}")
+        score_err = float((on_card[0] - on_cpu[0]).abs().max())
+        if score_err > 2.0 ** -22 * float(on_cpu[0].abs().max()):
+            raise AssertionError(f"CenterNet decode scores on the card vs the CPU: "
+                                 f"{score_err}")
+        log(f"decode of one request: the card == the CPU on the same head outputs "
+            f"({int(on_card[3].sum())} detections of {on_card[0].shape[0]}: picks, "
+            f"boxes and classes exactly, scores within {score_err:.2e})")
+        fwd_ms = event_ms(lambda: model.net(model._preprocess(x)), 10)
+        dec_ms = event_ms(decode, 10)
+        log(f"request breakdown (device, CUDA events): network {fwd_ms:.3f} ms, "
+            f"decode {dec_ms:.3f} ms")
+        net_check = network_vs_cpu_normwise(model, x, outputs)
+    profile_requests(model, images[:3])
+    del model
+    torch.cuda.empty_cache()
+    return dict(latencies=latencies, p50=p50, counts=counts, network_ms=fwd_ms,
+                decode_ms=dec_ms, network_vs_cpu=net_check, calibrated=calibrated,
+                head_peak=peak, head_peak_after=after)
+
+
+def adam_card_vs_cpu(model):
+    """Two TF-style Adam updates of the model's parameters on the card and on
+    the CPU, from the same state and the same seeded gradients: the largest
+    difference of parameters and moments, held to 1e-6 of each tensor's
+    largest entry (``b^t`` is a float32 ``pow``, which the two devices'
+    libraries may round apart by an ulp)."""
+    import torch
+
+    from tpudet_torch.runtime import optim
+
+    gen = torch.Generator().manual_seed(5)
+    cpu = {k: p.detach().cpu().clone() for k, p in model.net.named_parameters()}
+    grads = [{k: torch.randn(p.shape, generator=gen) * 10.0 ** (2 * torch.rand(
+        (), generator=gen) - 4) for k, p in cpu.items()} for _ in range(2)]
+    card = {k: p.to(model.device) for k, p in cpu.items()}
+    adam = optim.Adam()
+    s_cpu, s_card = adam.init(cpu), adam.init(card)
+    for g in grads:
+        adam.update(g, s_cpu, cpu, CENTERNET_LR)
+        adam.update({k: v.to(model.device) for k, v in g.items()}, s_card, card,
+                    CENTERNET_LR)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for got, want in ((card, cpu), (s_card["mu"], s_cpu["mu"]),
+                      (s_card["nu"], s_cpu["nu"])):
+        for k in want:
+            scale = float(want[k].abs().max()) or 1.0
+            worst = max(worst, float((got[k].cpu() - want[k]).abs().max()) / scale)
+    exact = all(torch.equal(card[k].cpu(), cpu[k]) for k in cpu)
+    log(f"Adam, two updates of {len(cpu)} tensors on the card vs the CPU, same "
+        f"gradients: max |diff| / max |value| {worst:.3e}; parameters bit for bit: {exact}")
+    if worst > 1e-6 or int(s_card["count"]) != 2:
+        raise AssertionError(f"Adam on the card vs the CPU: {worst}")
+    return dict(max_rel_err=worst, bit_for_bit=exact)
+
+
+def centernet_bad_labels(dev, model, images, gt):
+    """Valid gts labelled -1, 20 and -21 (tpudet wraps the first and drops the
+    others at the center cells): ``centernet_loss`` on one step's head
+    outputs stays finite on the card and equals the CPU's, and the context
+    stays usable."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.heads import centernet as center_head
+
+    bad = gt.copy()
+    bad[0, :3, 4] = [-1, 20, -21]
+    heads, g = train_heads(model, images, bad, lambda o: o)
+    on_card = center_head.centernet_loss(*heads, g, model.raw_classes)
+    on_cpu = center_head.centernet_loss(*(h.cpu() for h in heads), g.cpu(),
+                                        model.raw_classes)
+    if not bool(torch.isfinite(on_card)):
+        raise AssertionError(f"out-of-range labels: loss {float(on_card)} on the card")
+    x = torch.arange(8.0, device=dev)
+    if float((x * 2).sum()) != 56.0:
+        raise AssertionError("the context is not usable after out-of-range labels")
+    rel = abs(float(on_card) - float(on_cpu)) / abs(float(on_cpu))
+    log(f"CenterNet loss with labels -1, 20, -21: {float(on_card):.6f} on the card, "
+        f"{float(on_cpu):.6f} on the CPU (rel {rel:.2e}); the context is usable after")
+    if rel > 1e-5 or not np.isfinite(float(on_cpu)):
+        raise AssertionError(f"out-of-range labels: card {float(on_card)} vs CPU "
+                             f"{float(on_cpu)}")
+    return dict(card=float(on_card), cpu=float(on_cpu))
+
+
+def phase_centernet_train(dev, n_steps=10, warmup=2):
+    import torch
+
+    b, size = CENTERNET_CONFIG["batch_size"], CENTERNET_CONFIG["input_size"]
+    images, gt = retina_batch(14, b, size)
+    log(f"CenterNet train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    torch.cuda.reset_peak_memory_stats()
+    model = centernet_model(dev, feed((images, gt), n_steps, b))
+    run = train_without_kernels("CenterNet", model, images, gt, n_steps, warmup,
+                                CENTERNET_LR)
+    if int(model.opt_state["count"]) != model.global_step:
+        raise AssertionError(f"Adam's count {int(model.opt_state['count'])} after "
+                             f"{model.global_step} steps")
+    run["adam"] = adam_card_vs_cpu(model)
+    run["bad_labels"] = centernet_bad_labels(dev, model, images, gt)
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def no_kernel_records(serve, run, n_requests):
+    """A family's entries for a kernel that neither its steps nor its
+    requests launch."""
+    return {"launches": 0, "launches_per_request": 0.0, "launches_per_step": 0.0,
+            "request_counts": serve["counts"], "step_counts": run["counts"],
+            "steps": run["steps"], "requests": n_requests}
 
 
 def main() -> int:
@@ -1805,6 +2184,35 @@ def main() -> int:
         log_pool(f"{name}'s decode pool", y_pool)
         yolo[key] = dict(serve=y_serve, run=y_run, pool=y_pool,
                          records=yolo_records(y_serve, y_run, y_pool, n_requests))
+    # 13. FCOS: serve, train, the NMS kernel on the decode pool and at full width
+    fcos_serve = phase_fcos_serve(dev, n_requests)
+    fcos_run = phase_fcos_train(dev)
+    fcos_pool = nms_pool_timing(fcos_serve["kernel_args"])
+    log_pool("FCOS's decode pool", fcos_pool)
+    fcos_full = pool_run_out("FCOS", run_out_args(fcos_serve["kernel_args"]))
+    fcos_nms = yolo_records(fcos_serve, fcos_run, fcos_pool, n_requests)[0]
+    fcos_nms["run_out_full_width"] = {k: fcos_full[k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks", "shape")}
+    fcos_assign = no_kernel_records(fcos_serve, fcos_run, n_requests)
+
+    # 14. CenterNet: serve, train, Adam on the card, out-of-range labels
+    cn_serve = phase_centernet_serve(dev, n_requests)
+    cn_run = phase_centernet_train(dev)
+    cn_records = no_kernel_records(cn_serve, cn_run, n_requests)
+    for key, serve_f, run_f in (("fcos", fcos_serve, fcos_run),
+                                ("centernet", cn_serve, cn_run)):
+        log(json.dumps({key: {
+            "serve_p50_ms": serve_f["p50"], "serve_ms": serve_f["latencies"],
+            "serve_counts": serve_f["counts"], "network_ms": serve_f["network_ms"],
+            "decode_ms": serve_f["decode_ms"], "network_vs_cpu": serve_f["network_vs_cpu"],
+            **{k: serve_f[k] for k in ("score_threshold", "candidates", "calibrated",
+                                       "head_peak", "head_peak_after") if k in serve_f},
+            "train_bf16": {k: run_f[k] for k in (
+                "images_per_s", "step_ms", "losses", "counts", "peak_gib", "profile",
+                "adam", "bad_labels") if k in run_f},
+            **({"decode_pool": fcos_pool, "run_out_full_width": fcos_full}
+               if key == "fcos" else {})}}))
+
     log(json.dumps({key: {
         "serve_p50_ms": f["serve"]["p50"], "serve_ms": f["serve"]["latencies"],
         "serve_counts": f["serve"]["counts"], "network_ms": f["serve"]["network_ms"],
@@ -1856,7 +2264,8 @@ def main() -> int:
                       + r_serve["counts"]["nms_rows"] + r_counts["nms_rows"]
                       + sum(f["records"][0]["launches"] for f in refine.values())
                       + ssd512["records"][0]["launches"]
-                      + sum(f["records"][0]["launches"] for f in yolo.values())),
+                      + sum(f["records"][0]["launches"] for f in yolo.values())
+                      + fcos_nms["launches"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -1904,7 +2313,8 @@ def main() -> int:
          "per_row_boxes": timings["per_row_boxes"],
          **{key: f["records"][0] for key, f in refine.items()},
          "ssd512": ssd512["records"][0],
-         **{key: f["records"][0] for key, f in yolo.items()}},
+         **{key: f["records"][0] for key, f in yolo.items()},
+         "fcos": fcos_nms, "centernet": cn_records},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -1924,7 +2334,8 @@ def main() -> int:
                                                  "bound_by")}},
          **{key: f["records"][1] for key, f in refine.items()},
          "ssd512": ssd512["records"][1],
-         **{key: f["records"][1] for key, f in yolo.items()}},
+         **{key: f["records"][1] for key, f in yolo.items()},
+         "fcos": fcos_assign, "centernet": cn_records},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

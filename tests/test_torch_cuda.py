@@ -348,3 +348,62 @@ def test_ssd512_loss_with_kernels_equals_plain(cuda_device, monkeypatch):
     monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
     with_plain = t_ssd.ssd_loss(*heads, anc, gt, 21, neg_sel_cap=384)
     assert torch.isfinite(with_kernels) and torch.equal(with_kernels, with_plain)
+
+
+def _fcos_heads(seed):
+    """One image's FCOS level outputs at 800x1200 (100x150 ... 7x10), NCHW:
+    logits, positive distances, centerness logits."""
+    rng = np.random.default_rng(seed)
+    shapes = [(-(-800 // s), -(-1200 // s)) for s in (8, 16, 32, 64, 128)]
+    return [tuple(torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(-1.0, 1.5, (20, h, w)), np.exp(rng.normal(1.0, 1.0, (4, h, w))),
+        rng.normal(0.0, 1.5, (1, h, w)))) for h, w in shapes]
+
+
+@pytest.mark.cuda
+def test_fcos_decode_pool_equals_plain(cuda_device, monkeypatch):
+    """One FCOS image's decode on the card: 19 classes (Q9) over 20,017
+    locations, one NMS launch (the sorted scan on the pool [19, 512]), equal
+    to the plain version."""
+    from tpudet_torch.heads import fcos as t_fcos
+
+    heads = [tuple(t.to(cuda_device) for t in lvl) for lvl in _fcos_heads(3)]
+    before = (nms_kernel.launches, dict(nms_kernel.launches_by_path))
+    calls = []
+    real = nms_kernel.nms_rows
+    monkeypatch.setattr(nms_kernel, "nms_rows",
+                        lambda *a: calls.append(tuple(a[1].shape)) or real(*a))
+    got = t_fcos.fcos_decode(heads, 20, 0.55, 0.45, 10)
+    torch.cuda.synchronize()
+    assert calls == [(19, 20017)]
+    assert nms_kernel.launches == before[0] + 1
+    assert nms_kernel.launches_by_path["sorted_scan"] == before[1]["sorted_scan"] + 1
+    monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
+    want = t_fcos.fcos_decode(heads, 20, 0.55, 0.45, 10)
+    assert int(want[3].sum()) > 20
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", [-1, 20, -21])
+def test_centernet_out_of_range_label_gives_a_finite_loss_on_the_card(cuda_device, label):
+    """A valid gt labelled outside [0, 20): tpudet wraps -1 to 19 and drops
+    20 and -21 at the center cells; nothing asserts on the card, the loss is
+    finite and equal to the CPU's, and the context stays usable after."""
+    from tpudet_torch.heads import centernet as t_center
+
+    rng = np.random.default_rng(4)
+    heads = [torch.from_numpy(rng.normal(m, s, (2, c, 96, 96)).astype(np.float32))
+             for m, s, c in ((-2.0, 1.5, 20), (0.5, 0.3, 2), (3.0, 2.0, 2))]
+    gt = torch.from_numpy(rand_gt(np.random.default_rng(5), 2, 60, 10, size=384.0,
+                                  n_valid_min=2))
+    gt[0, 0, 4] = label
+    on_card = t_center.centernet_loss(*[h.to(cuda_device) for h in heads],
+                                      gt.to(cuda_device), 20)
+    assert torch.isfinite(on_card)
+    np.testing.assert_allclose(float(on_card), float(t_center.centernet_loss(*heads, gt, 20)),
+                               rtol=1e-5)
+    x = torch.arange(8.0, device=cuda_device)
+    assert float((x * 2).sum()) == 56.0
+    torch.cuda.synchronize()

@@ -121,7 +121,8 @@ def test_bnactconv_matches_flax(dtype, tol, train):
 def test_bnactconv_init_is_flaxs_variance_scaling():
     """Truncated normal at +-2 std, std = sqrt(2 / fan_in) / 0.8796 before the
     cut (so ~sqrt(2 / fan_in) after it), the constant bias, drawn from the
-    generator; ``norm="gn"`` waits for FCOS."""
+    generator; ``norm="gn"`` (FCOS) normalises with a GroupNorm named ``gn``,
+    and any other norm raises."""
     gen = torch.Generator().manual_seed(0)
     unit = t_layers.BNActConv(64, 128, 3, bias_init_const=-4.59, generator=gen)
     w = unit.conv.weight.detach().numpy()
@@ -132,8 +133,12 @@ def test_bnactconv_init_is_flaxs_variance_scaling():
     again = t_layers.BNActConv(64, 128, 3, generator=torch.Generator().manual_seed(0))
     assert torch.equal(again.conv.weight, unit.conv.weight)
     assert not again.conv.bias.any()
-    with pytest.raises(NotImplementedError, match="FCOS"):
-        t_layers.BNActConv(4, 4, 3, norm="gn")
+    gn_unit = t_layers.BNActConv(64, 128, 3, norm="gn",
+                                 generator=torch.Generator().manual_seed(0))
+    assert isinstance(gn_unit.gn, t_layers.GroupNorm) and not hasattr(gn_unit, "bn")
+    assert torch.equal(gn_unit.conv.weight, unit.conv.weight)
+    with pytest.raises(ValueError, match="norm"):
+        t_layers.BNActConv(4, 4, 3, norm="ln")
 
 
 @pytest.mark.parametrize("size_in,size_out,dtype", [

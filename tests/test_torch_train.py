@@ -247,7 +247,7 @@ def test_momentum_matches_tpudet_over_three_steps():
         topt.update({k: torch.tensor(v) for k, v in grads.items()}, tv, tp, lr)
         for k in params:
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6)
-            np.testing.assert_allclose(tv[k].numpy(), np.asarray(js.velocity[k]),
+            np.testing.assert_allclose(tv["velocity"][k].numpy(), np.asarray(js.velocity[k]),
                                        rtol=1e-6)
 
 

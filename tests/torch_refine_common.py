@@ -88,12 +88,13 @@ def batch(seed, b=2, size=SIZE):
     return images, gt_rows(rng, b, 8, 4, float(size))
 
 
-def numpy_variables(net, rng):
-    """Variables of the flax ``net`` at input ``SIZE``, drawn from ``rng``:
-    glorot-normal kernels (fans from the HWIO shape), small biases, BatchNorm
-    scales near 1 and statistics in [0.5, 2], L2-norm scales in [5, 15]."""
+def numpy_variables(net, rng, hw=(SIZE, SIZE)):
+    """Variables of the flax ``net`` at input ``hw`` (default ``SIZE``
+    square), drawn from ``rng``: glorot-normal kernels (fans from the HWIO
+    shape), small biases, BatchNorm and GroupNorm scales near 1, statistics
+    in [0.5, 2], L2-norm scales in [5, 15]."""
     shapes = jax.eval_shape(lambda key, x: net.init(key, x, False),
-                            jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+                            jax.random.PRNGKey(0), jnp.zeros((1, *hw, 3)))
 
     def draw(path, leaf):
         name, shape = path[-1].key, leaf.shape

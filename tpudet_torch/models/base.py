@@ -37,23 +37,32 @@ UNPORTED_KEYS = {
 }
 
 
+def data_shape_hw(config: Dict[str, Any]):
+    """``(h, w)`` of ``config["data_shape"]``: ``[h, w, 3]``, or ``[3, h, w]``
+    for channels_first."""
+    shape = config["data_shape"]
+    if len(shape) != 3:
+        raise ValueError(f"data_shape must have 3 entries, got {shape}")
+    return (tuple(shape[:2]) if config["data_format"] == "channels_last"
+            else tuple(shape[1:]))
+
+
 def global_l2(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """``sum(p^2) / 2`` over every parameter (tf.nn.l2_loss summed)."""
     return sum(0.5 * torch.sum(torch.square(p.float())) for p in params)
 
 
 class DetectorBase:
-    """Subclasses set ``input_size`` and implement ``_build`` (create
-    ``self.net`` from ``self.generator`` and any static tables),
-    ``_loss_from_outputs`` and ``_decode_outputs``, and optionally
-    ``_load_pretraining``.
+    """Subclasses implement ``_build`` (create ``self.net`` from
+    ``self.generator`` and any static tables), ``_loss_from_outputs`` and
+    ``_decode_outputs``, and optionally ``_load_pretraining``,
+    ``_make_optimizer`` (Momentum 0.9 unless overridden) and
+    ``_preprocess``.
 
     ``data_provider`` is tpudet's: ``num_train`` and ``train_generator``, either
     an ``(initializer, iterator)`` pair or an iterator with an optional
     ``reset``; it yields numpy ``(images [B, H, W, 3] or [B, 3, H, W],
     gt [B, G, 5])`` batches."""
-
-    input_size: int = None
 
     def __init__(self, config: Dict[str, Any], data_provider: Optional[Dict] = None,
                  device: str | torch.device | None = None):
@@ -94,9 +103,15 @@ class DetectorBase:
         self._load_pretraining()
         self.net.to(self.device).eval()
         self._mean = self._pixel_mean().to(self.device).reshape(1, 3, 1, 1)
-        self._optimizer = optim.Momentum(0.9)
-        self.velocity = (self._optimizer.init(dict(self.net.named_parameters()))
-                         if self.mode == "train" else None)
+        self._optimizer = self._make_optimizer()
+        self.opt_state = (self._optimizer.init(dict(self.net.named_parameters()))
+                          if self.mode == "train" else None)
+
+    @property
+    def velocity(self):
+        """Momentum's state (``opt_state["velocity"]``), keyed like
+        ``named_parameters()``; None in test mode or under Adam."""
+        return None if self.opt_state is None else self.opt_state.get("velocity")
 
     # ------------------------------------------------------------- hooks
     def _build(self):
@@ -112,6 +127,9 @@ class DetectorBase:
 
     def _load_pretraining(self):
         pass
+
+    def _make_optimizer(self):
+        return optim.Momentum(0.9)
 
     def _pixel_mean(self):
         """Per-channel RGB mean; 103.979 is the reference's value."""
@@ -153,14 +171,14 @@ class DetectorBase:
     def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
         """One step on a device batch: forward in train mode (which updates the
         BN running statistics), the loss plus ``weight_decay * global_l2``,
-        backward, and Momentum. Returns the loss as a device scalar."""
+        backward, and the optimizer. Returns the loss as a device scalar."""
         self.net.train()
         params = dict(self.net.named_parameters())
         outputs = self.net(self._preprocess(images))
         loss = self._loss_from_outputs(outputs, gt, self._sample_weight())
         loss = loss + self.weight_decay * global_l2(params.values())
         grads = torch.autograd.grad(loss, list(params.values()))
-        self._optimizer.update(dict(zip(params, grads)), self.velocity, params, lr)
+        self._optimizer.update(dict(zip(params, grads)), self.opt_state, params, lr)
         self.global_step += 1
         return loss.detach()
 
@@ -212,37 +230,70 @@ class DetectorBase:
                 cid.cpu().numpy()[valid]]
 
     def save_weight(self, mode: str, path: str):
-        """Write ``{path}-{global_step}.pt``: the net's state, the Momentum
-        velocity (training) and ``global_step``, so a run resumes identically."""
+        """Write ``{path}-{global_step}.pt``: the net's state, the optimizer's
+        (training) and ``global_step``, so a run resumes identically."""
         if mode not in ("latest", "best"):
             raise ValueError(f"mode must be 'latest' or 'best', got {mode!r}")
         state = {"state_dict": self.net.state_dict(), "global_step": self.global_step,
-                 "velocity": self.velocity or {}}
+                 "opt_state": self.opt_state or {}}
         fname = ckpt.save_state(path, state, self.global_step)
         print("save", mode, "model in", fname, "successfully")
 
     def load_weight(self, path: str):
-        """Restore the net, the velocity (training) and ``global_step`` from a
-        checkpoint of the port's (``.pt``) or of tpudet's ``save_weight``
-        (``.tpudet``: ``params`` and ``batch_stats`` go through
-        ``transfer.from_flax``, ``opt_state.velocity`` through
-        ``transfer.velocity_from_flax``). ``path`` is a file, a ``path-step``
+        """Restore the net, the optimizer's state (training) and
+        ``global_step`` from a checkpoint of the port's (``.pt``) or of
+        tpudet's ``save_weight`` (``.tpudet``: ``params`` and ``batch_stats``
+        go through ``transfer.from_flax``, ``opt_state`` through
+        ``transfer.opt_state_from_flax``). ``path`` is a file, a ``path-step``
         prefix or a bare prefix (the newest step)."""
         fname = ckpt.resolve(path)
         blob = ckpt.load_state(fname, map_location=self.device)
         if fname.endswith(ckpt.TPUDET_SUFFIX):
             state = transfer.from_flax({"params": blob["params"],
                                         "batch_stats": blob.get("batch_stats", {})})
-            velocity = (blob.get("opt_state") or {}).get("velocity")
-            velocity = transfer.velocity_from_flax(velocity) if velocity else None
+            opt_state = blob.get("opt_state")
+            opt_state = transfer.opt_state_from_flax(opt_state) if opt_state else None
         else:
-            state, velocity = blob["state_dict"], blob.get("velocity")
+            state, opt_state = blob["state_dict"], blob.get("opt_state")
         self.net.load_state_dict(state, strict=True)
-        if self.velocity is not None and velocity:
-            if velocity.keys() != self.velocity.keys():
-                raise KeyError("the checkpoint's velocity does not match the net's "
-                               "parameters")
-            for k, v in velocity.items():
-                self.velocity[k].copy_(v)
+        if self.opt_state is not None and opt_state:
+            _copy_state(self.opt_state, opt_state)
         self.global_step = int(blob.get("global_step", 0))
         print("load weight", fname, "successfully")
+
+    def _load_backone(self, path: str, with_stats: bool):
+        """Restore the ``backone`` scope from tpudet's ``.tpudet`` or the
+        port's ``.pt`` (an exact file, a ``path-step`` prefix or a bare
+        prefix): its parameters, and its BatchNorm statistics where
+        ``with_stats`` and the file has them. Returns the file's name."""
+        fname = ckpt.resolve(path)
+        blob = ckpt.load_state(fname)
+        if fname.endswith(ckpt.TPUDET_SUFFIX):
+            collections = ("params", "batch_stats") if with_stats else ("params",)
+            state = transfer.from_flax({c: {"backone": blob[c]["backone"]}
+                                        for c in collections
+                                        if "backone" in blob.get(c, {})})
+        else:
+            state = blob["state_dict"]
+        state = transfer.subtree(state, "backone")
+        if not with_stats:
+            names = dict(self.net.backone.named_parameters())
+            state = {k: v for k, v in state.items() if k in names}
+        missing, unexpected = self.net.backone.load_state_dict(state, strict=False)
+        if unexpected or any(not k.endswith((".mean", ".var")) for k in missing):
+            raise KeyError(f"the checkpoint's backone does not match the net's: missing "
+                           f"{missing}, unexpected {unexpected}")
+        return fname
+
+
+def _copy_state(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Copy an optimizer state ``src`` into ``dst`` in place; the two must
+    hold the same keys at every level."""
+    if dst.keys() != src.keys():
+        raise KeyError(f"the checkpoint's optimizer state {sorted(src)} does not match "
+                       f"the model's {sorted(dst)}")
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_state(dst[k], v)
+        else:
+            dst[k].copy_(v)

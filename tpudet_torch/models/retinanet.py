@@ -25,7 +25,7 @@ from torch import nn
 
 from tpudet_torch.heads import retina as retina_head
 from tpudet_torch.heads import ssd as ssd_head
-from tpudet_torch.models.base import DetectorBase, global_l2
+from tpudet_torch.models.base import DetectorBase, data_shape_hw, global_l2
 from tpudet_torch.nn.backbones.resnet import PreActResNet
 from tpudet_torch.nn.necks.fpn import RetinaFPN
 from tpudet_torch.ops import losses as loss_ops
@@ -104,11 +104,7 @@ def pyramid_shapes(h: int, w: int, num_stages: int):
 
 class RetinaNet(DetectorBase):
     def __init__(self, config, data_provider=None, device=None):
-        if len(config["data_shape"]) != 3:
-            raise ValueError(f"data_shape must have 3 entries, got {config['data_shape']}")
-        self.data_shape_hw = (tuple(config["data_shape"][:2])
-                              if config["data_format"] == "channels_last"
-                              else tuple(config["data_shape"][1:]))
+        self.data_shape_hw = data_shape_hw(config)
         self.is_pretraining = bool(config.get("is_pretraining", False))
         self.alpha = float(config.get("alpha", 0.25))
         self.gamma = float(config.get("gamma", 2.0))
@@ -163,7 +159,7 @@ class RetinaNet(DetectorBase):
                 + self.weight_decay * global_l2(params.values()))
         acc = torch.mean((torch.argmax(logits.detach(), -1) == gt).to(torch.float32))
         grads = torch.autograd.grad(loss, list(params.values()))
-        self._optimizer.update(dict(zip(params, grads)), self.velocity, params, lr)
+        self._optimizer.update(dict(zip(params, grads)), self.opt_state, params, lr)
         self.global_step += 1
         return loss.detach(), acc
 

@@ -15,9 +15,7 @@ and ``raw_prediction_conv`` (a plain conv + bias prediction layer).
 from __future__ import annotations
 
 from tpudet_torch.heads import yolo as yolo_head
-from tpudet_torch.models.base import DetectorBase
-from tpudet_torch.runtime import checkpoint as ckpt
-from tpudet_torch.runtime import transfer
+from tpudet_torch.models.base import DetectorBase, data_shape_hw
 
 
 def priors_per_head(priors, consistent: bool = False):
@@ -36,11 +34,7 @@ def priors_per_head(priors, consistent: bool = False):
 
 class _YOLOBase(DetectorBase):
     def __init__(self, config, data_provider=None, device=None):
-        if len(config["data_shape"]) != 3:
-            raise ValueError(f"data_shape must have 3 entries, got {config['data_shape']}")
-        self.data_shape_hw = (tuple(config["data_shape"][:2])
-                              if config["data_format"] == "channels_last"
-                              else tuple(config["data_shape"][1:]))
+        self.data_shape_hw = data_shape_hw(config)
         self.consistent = bool(config.get("consistent_geometry", False))
         self.scales = (float(config.get("coord_scale", 1.0)),
                        float(config.get("class_scale", 1.0)),
@@ -54,19 +48,7 @@ class _YOLOBase(DetectorBase):
         """Restore the ``backone`` scope, parameters and (where the file has
         them) BatchNorm statistics, from tpudet's ``.tpudet`` or the port's
         ``.pt`` (an exact file, a ``path-step`` prefix or a bare prefix)."""
-        fname = ckpt.resolve(path)
-        blob = ckpt.load_state(fname)
-        if fname.endswith(ckpt.TPUDET_SUFFIX):
-            state = transfer.from_flax({c: {"backone": blob[c]["backone"]}
-                                        for c in ("params", "batch_stats")
-                                        if "backone" in blob.get(c, {})})
-        else:
-            state = blob["state_dict"]
-        missing, unexpected = self.net.backone.load_state_dict(
-            transfer.subtree(state, "backone"), strict=False)
-        if unexpected or any(not k.endswith((".mean", ".var")) for k in missing):
-            raise KeyError(f"the checkpoint's backone does not match the net's: missing "
-                           f"{missing}, unexpected {unexpected}")
+        fname = self._load_backone(path, with_stats=True)
         print(">> load pretraining weight", fname, "successfully")
 
 

@@ -6,9 +6,11 @@ tpudet's quirks, kept:
   * Q8: the bottleneck convolves its shortcut with a 3x3 even at stride 1;
     the basic block keeps the identity at stride 1.
 
-The stem is a 7x7/2 ConvBN+ReLU and a 3x3/2 SAME max-pool. Only the
-BatchNorm variant is ported (FCOS's GroupNorm one comes with FCOS). Submodule
-names are flax's, so weights transfer by name.
+``norm="gn"`` is FCOS's GroupNorm variant: every unit normalises with
+GroupNorm, and the stem is a 7x7/2 conv with a bias (``init_conv``), a
+GroupNorm (``init_gn``) and ReLU instead of a ConvBN+ReLU. Either stem ends
+in a 3x3/2 SAME max-pool. Submodule names are flax's, so weights transfer by
+name.
 """
 
 from __future__ import annotations
@@ -18,22 +20,22 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from tpudet_torch.nn.layers import BNActConv, ConvBN, max_pool_same
+from tpudet_torch.nn.layers import (BNActConv, ConvBN, GroupNorm, SameConv2d,
+                                    he_truncated_normal_, max_pool_same)
 
 
 class _BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_ch: int, filters: int, stride: int,
+    def __init__(self, in_ch: int, filters: int, stride: int, norm: str = "bn",
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = BNActConv(in_ch, filters, 3, stride, generator=generator,
-                               dtype=dtype)
-        self.conv2 = BNActConv(filters, filters, 3, 1, generator=generator, dtype=dtype)
+        kw = dict(norm=norm, generator=generator, dtype=dtype)
+        self.conv1 = BNActConv(in_ch, filters, 3, stride, **kw)
+        self.conv2 = BNActConv(filters, filters, 3, 1, **kw)
         if stride != 1:
-            self.shortcut = BNActConv(in_ch, filters, 3, stride, generator=generator,
-                                      dtype=dtype)
+            self.shortcut = BNActConv(in_ch, filters, 3, stride, **kw)
         else:
             self.shortcut = None
 
@@ -45,25 +47,24 @@ class _BasicBlock(nn.Module):
 class _Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, filters: int, stride: int,
+    def __init__(self, in_ch: int, filters: int, stride: int, norm: str = "bn",
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = BNActConv(in_ch, filters, 1, 1, generator=generator, dtype=dtype)
-        self.conv2 = BNActConv(filters, filters, 3, stride, generator=generator,
-                               dtype=dtype)
-        self.conv3 = BNActConv(filters, filters * 4, 1, 1, generator=generator,
-                               dtype=dtype)
+        kw = dict(norm=norm, generator=generator, dtype=dtype)
+        self.conv1 = BNActConv(in_ch, filters, 1, 1, **kw)
+        self.conv2 = BNActConv(filters, filters, 3, stride, **kw)
+        self.conv3 = BNActConv(filters, filters * 4, 1, 1, **kw)
         # Q8: the shortcut is always convolved (3x3), even at stride 1
-        self.shortcut = BNActConv(in_ch, filters * 4, 3, stride, generator=generator,
-                                  dtype=dtype)
+        self.shortcut = BNActConv(in_ch, filters * 4, 3, stride, **kw)
 
     def forward(self, x):
         return self.conv3(self.conv2(self.conv1(x))) + self.shortcut(x)
 
 
 class PreActResNet(nn.Module):
-    """7x7/2 ConvBN-ReLU -> 3x3/2 max-pool -> pre-activation residual stages.
+    """The stem (7x7/2 ConvBN-ReLU, or conv-GroupNorm-ReLU with ``norm="gn"``)
+    -> 3x3/2 max-pool -> pre-activation residual stages.
 
     Returns the last three stage outputs (strides 8, 16, 32 for four stages);
     ``out_channels`` lists their widths."""
@@ -71,10 +72,17 @@ class PreActResNet(nn.Module):
     def __init__(self, block_list: Sequence[int], init_conv_filters: int = 16,
                  width_base: int = 7, is_bottleneck: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "bn"):
         super().__init__()
-        self.init_conv = ConvBN(3, init_conv_filters, 7, 2, activation=torch.relu,
-                                generator=generator, dtype=dtype)
+        self.norm = norm
+        if norm == "bn":
+            self.init_conv = ConvBN(3, init_conv_filters, 7, 2, activation=torch.relu,
+                                    generator=generator, dtype=dtype)
+        else:
+            self.init_conv = SameConv2d(3, init_conv_filters, 7, 2, generator=generator,
+                                        dtype=dtype)
+            he_truncated_normal_(self.init_conv.weight, generator)
+            self.init_gn = GroupNorm(init_conv_filters, dtype=dtype)
         block_cls = _Bottleneck if is_bottleneck else _BasicBlock
         self.stages = []  # the block names of each stage
         widths = []
@@ -86,14 +94,17 @@ class PreActResNet(nn.Module):
                 stride = 2 if (si > 0 and ui == 0) else 1
                 names.append(f"block{si + 1}_unit{ui + 1}")
                 self.add_module(names[-1],
-                                block_cls(in_ch, width, stride, generator, dtype))
+                                block_cls(in_ch, width, stride, norm, generator, dtype))
                 in_ch = width * block_cls.expansion
             self.stages.append(names)
             widths.append(in_ch)
         self.out_channels = widths[-3:]
 
     def forward(self, x):
-        x = max_pool_same(self.init_conv(x), 3, 2)
+        x = self.init_conv(x)
+        if self.norm == "gn":
+            x = torch.relu(self.init_gn(x))
+        x = max_pool_same(x, 3, 2)
         endpoints = []
         for names in self.stages:
             for name in names:

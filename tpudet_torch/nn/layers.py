@@ -8,10 +8,11 @@ Layout is NCHW inside the port. Conventions kept from tpudet:
     the divisor (flax's ``avg_pool``);
   * glorot-uniform conv kernels and zero biases, drawn from a caller's
     ``torch.Generator``;
-  * BatchNorm as flax's ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)``, written
-    by hand (see :class:`BatchNorm`); its parameter and buffer names
-    (``scale``, ``bias``, ``mean``, ``var``) are flax's, so weights transfer by
-    name;
+  * BatchNorm as flax's ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` and
+    GroupNorm as flax's ``nn.GroupNorm(8, epsilon=1e-5)``, written by hand
+    (see :class:`BatchNorm`, :class:`GroupNorm`); their parameter and buffer
+    names (``scale``, ``bias``, ``mean``, ``var``) are flax's, so weights
+    transfer by name;
   * a compute ``dtype`` per module with flax's casts, done explicitly rather
     than by ``torch.autocast`` (whose per-op choices differ from flax's): a
     conv casts its input and kernel to ``dtype`` and adds the bias in
@@ -216,15 +217,55 @@ class ConvBN(nn.Module):
         return self.activation(x) if self.activation is not None else x
 
 
-class BNActConv(nn.Module):
-    """Pre-activation unit: BatchNorm -> activation -> SAME conv(+bias).
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW channels with flax's ``nn.GroupNorm(num_groups,
+    epsilon=1e-5, dtype=dtype)`` semantics: the channels split into
+    ``groups`` contiguous groups, and each (image, group) is normalised by
+    the mean and flax's fast biased variance ``max(0, E[x^2] - E[x]^2)``
+    over its channels and positions, reduced in float32, each mean a sum
+    times ``1/n`` as :class:`BatchNorm` takes it. The output is ``(x - mean)
+    * (rsqrt(var + eps) * scale) + bias`` in float32, returned in ``dtype``
+    (flax casts to the module's dtype, whatever the input's). No running
+    statistics: train and eval mode compute the same."""
 
-    The conv kernel is flax's ``variance_scaling(2.0, "fan_in",
-    "truncated_normal")``, drawn from the caller's generator; the bias is 0, or
-    ``bias_init_const`` (RetinaNet's class-prediction prior
-    ``-log((1-pi)/pi)``). BatchNorm returns its input's dtype and the conv
-    casts to ``dtype`` right after, so a float32 input (the FPN's top-down
-    sums) gives the same values as flax's BatchNorm(dtype=bfloat16) there.
+    def __init__(self, channels: int, groups: int = 8, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if channels % groups:
+            raise ValueError(f"{groups} groups do not divide {channels} channels")
+        self.groups, self.eps, self.compute_dtype = groups, eps, dtype
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        n, c = x.shape[:2]
+        xg = x.float().reshape(n, self.groups, -1)
+        inv_n = 1.0 / xg.shape[-1]
+        mean = torch.sum(xg, -1) * inv_n
+        var = torch.clamp(torch.sum(xg * xg, -1) * inv_n - mean * mean, min=0.0)
+        # each group's statistics over its channels by broadcasting, not
+        # repeat_interleave, whose int form syncs the card with the host
+        grouped = (n, self.groups, c // self.groups)
+        mean = mean[..., None].expand(grouped).reshape(n, c)
+        mul = (torch.rsqrt(var + self.eps)[..., None].expand(grouped).reshape(n, c)
+               * self.scale)
+        spatial = (1,) * (x.dim() - 2)
+        y = ((x.float() - mean.view(n, c, *spatial)) * mul.view(n, c, *spatial)
+             + self.bias.view(1, c, *spatial))
+        return y.to(self.compute_dtype)
+
+
+class BNActConv(nn.Module):
+    """Pre-activation unit: norm -> activation -> SAME conv(+bias).
+
+    ``norm`` is ``"bn"`` (:class:`BatchNorm`, module ``bn``) or ``"gn"``
+    (:class:`GroupNorm` of 8 groups, module ``gn``: FCOS). The conv kernel is
+    flax's ``variance_scaling(2.0, "fan_in", "truncated_normal")``, drawn from
+    the caller's generator; the bias is 0, or ``bias_init_const`` (the
+    class-prediction prior ``-log((1-pi)/pi)``). BatchNorm returns its
+    input's dtype and the conv casts to ``dtype`` right after, so a float32
+    input (the FPN's top-down sums) gives the same values as flax's
+    BatchNorm(dtype=bfloat16) there.
     """
 
     def __init__(self, in_ch: int, filters: int, kernel: int, stride: int = 1,
@@ -233,11 +274,13 @@ class BNActConv(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if norm != "bn":
-            raise NotImplementedError(
-                f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, FCOS: the "
-                f"GroupNorm ResNet)")
-        self.bn = BatchNorm(in_ch)
+        if norm == "bn":
+            self.bn = BatchNorm(in_ch)
+        elif norm == "gn":
+            self.gn = GroupNorm(in_ch, dtype=dtype)
+        else:
+            raise ValueError(f"norm must be 'bn' or 'gn', got {norm!r}")
+        self.norm = norm
         self.activation = activation
         self.conv = SameConv2d(in_ch, filters, kernel, stride, generator=generator,
                                dtype=dtype)
@@ -247,7 +290,7 @@ class BNActConv(nn.Module):
                 self.conv.bias.fill_(bias_init_const)
 
     def forward(self, x):
-        x = self.bn(x)
+        x = (self.bn if self.norm == "bn" else self.gn)(x)
         if self.activation is not None:
             x = self.activation(x)
         return self.conv(x)

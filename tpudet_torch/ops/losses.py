@@ -2,7 +2,7 @@
 
 Same formulas as tpudet's, written out rather than taken from ``torch.nn``
 (``torch.log_softmax`` sums in another way): elementwise and rowwise functions,
-with the reductions left to the callers. The focal and IoU losses come with
+with the reductions left to the callers. The focal and IoU losses live with
 the families that use them.
 """
 
@@ -50,15 +50,19 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     return _logsumexp(logits) - take_last(logits, labels)
 
 
+def jnp_abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with ``jnp.abs``'s gradient at 0, which is 1 (``torch.abs``'s
+    is 0): ``where(x >= 0, x, -x)``."""
+    return torch.where(x >= 0, x, -x)
+
+
 def sigmoid_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """``max(x, 0) - x t + log1p(exp(-|x|))`` elementwise
     (``tf.nn.sigmoid_cross_entropy_with_logits``), spelled as tpudet spells it,
     with JAX's gradients at ``x = 0``: ``torch.maximum`` splits a tie as
-    ``jnp.maximum`` does, and ``|x|`` is ``where(x >= 0, x, -x)``, whose
-    gradient there is 1 as ``jnp.abs``'s is (``torch.abs``'s is 0)."""
-    abs_x = torch.where(logits >= 0, logits, -logits)
+    ``jnp.maximum`` does, and ``|x|`` is :func:`jnp_abs`."""
     return (torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
-            + torch.log1p(torch.exp(-abs_x)))
+            + torch.log1p(torch.exp(-jnp_abs(logits))))
 
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:

@@ -3,8 +3,9 @@ own ``.pt`` files, and a reader of tpudet's ``.tpudet`` files.
 
 ``save_state(path, state, step)`` writes ``{path}-{step}.pt`` (tf.train.Saver's
 ``path-{global_step}`` convention). The models' state holds the net's
-``state_dict``, the Momentum ``velocity`` (keyed like ``named_parameters()``)
-and ``global_step``.
+``state_dict``, the optimizer's ``opt_state`` (Momentum's ``velocity`` or
+Adam's ``count``, ``mu`` and ``nu``, keyed like ``named_parameters()``) and
+``global_step``.
 
 ``load_state(path)`` takes an exact file path, a ``path-step`` prefix, or a bare
 prefix, which resolves to the newest step of either kind (:func:`resolve`,

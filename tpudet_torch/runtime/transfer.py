@@ -9,13 +9,16 @@ leaf by the port's module names, which are flax's:
     (``[in, out, kh, kw]``, flipped in both spatial axes: flax does not flip
     the kernel, torch's ``conv_transpose2d`` does); ``.../dconv/bias``;
   * ``.../bn/{scale,bias}`` and ``batch_stats/.../bn/{mean,var}`` keep their
-    names (see :class:`tpudet_torch.nn.layers.BatchNorm`);
+    names (see :class:`tpudet_torch.nn.layers.BatchNorm`), as do the
+    GroupNorms' ``.../gn/{scale,bias}`` and the GroupNorm ResNet's stem,
+    ``init_conv/{kernel,bias}`` (a bare conv) and ``init_gn/{scale,bias}``;
   * the L2-norm ``scale`` of shape ``[1]`` (``l2_norm``, and RefineDet's and
     PFPNet's ``feat1_l2_norm`` and ``feat2_l2_norm``).
 
 A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
 missing or extra key, or a shape that differs, raises too.
-:func:`velocity_from_flax` renames tpudet's Momentum state the same way, and
+:func:`opt_state_from_flax` renames tpudet's optimizer state (Momentum's
+``velocity``, Adam's ``count``, ``mu`` and ``nu``) the same way, and
 :func:`subtree` cuts one module's entries out of a ``state_dict``.
 """
 
@@ -38,6 +41,12 @@ _LEAVES = {
     ("params", "l2_norm", "scale"),
     ("params", "feat1_l2_norm", "scale"),
     ("params", "feat2_l2_norm", "scale"),
+    ("params", "gn", "scale"),
+    ("params", "gn", "bias"),
+    ("params", "init_conv", "kernel"),
+    ("params", "init_conv", "bias"),
+    ("params", "init_gn", "scale"),
+    ("params", "init_gn", "bias"),
 }
 
 
@@ -85,6 +94,20 @@ def velocity_from_flax(velocity: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     as numpy arrays) -> the port's velocity dict, keyed like
     ``named_parameters()``; kernels convert as the parameters do."""
     return from_flax({"params": velocity})
+
+
+def opt_state_from_flax(opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """tpudet's optimizer state, as its checkpoints hold it -> the port's:
+    Momentum's ``{"velocity": tree}`` or Adam's ``{"count": scalar, "mu":
+    tree, "nu": tree}``, each tree of ``params`` renamed by
+    :func:`velocity_from_flax` and ``count`` an int32 tensor."""
+    if set(opt_state) == {"velocity"}:
+        return {"velocity": velocity_from_flax(opt_state["velocity"])}
+    if set(opt_state) == {"count", "mu", "nu"}:
+        return {"count": torch.tensor(np.asarray(opt_state["count"]), dtype=torch.int32),
+                "mu": velocity_from_flax(opt_state["mu"]),
+                "nu": velocity_from_flax(opt_state["nu"])}
+    raise KeyError(f"unknown optimizer state with keys {sorted(opt_state)}")
 
 
 def subtree(state: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
