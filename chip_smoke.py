@@ -93,7 +93,26 @@ Phases, each raising on failure (nothing is caught):
      15, lr 0.001, with no kernel launch, a finite and falling loss, a
      profiled step and peak memory; one Adam update on the card against the
      CPU's on the same gradients; out-of-range labels leave the loss finite
-     and the context usable.
+     and the context usable;
+ 15. LH-RCNN at its training script's config (``drivers/testlhrcnn.py``:
+     700x1100, 20 classes, 6818 anchors, post_nms_proposal 500): serve 10
+     fp32 requests at a score threshold chosen and logged from one probe
+     image (BatchNorm statistics from 4 seeded images where the initial ones
+     let the RPN's ``phw`` run away or vanish): two sorted scans a request (the
+     proposal pool [1, 1000] of [1, 6818], the class rows [20, 500]), a
+     per-pick rerun only where the proposal pool runs out (counted), no
+     assignment, decode with the kernel == with the plain version, the
+     network and the RoI head against the CPU; train 12 bf16 steps at batch
+     32, lr 0.003, on one fixed batch: 2 warm-up and 4 measured steps of
+     the RPN phase from global_step 0, then the same in the RCNN phase from
+     the script's ``rpn_first_step`` 60000; two NMS launches a step (the
+     positive pool [32, 512] of [32, 6878] per-row boxes, the negative pool
+     [32, 512] of [32, 6818]), no assignment, a finite loss that falls in
+     each phase, the other phase's parameters and velocities bit for bit;
+     ``rpn_loss_and_sample`` and ``rcnn_losses`` with the kernel == with the
+     plain version; then the NMS kernel timed on the four pools and on the
+     negative pool forced to run out, rerun at [32, 6818] by the per-pick
+     kernel.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -1049,11 +1068,11 @@ def nms_full_timing(args, plain_reps=2):
                 bound_by=b_by, picks=int(val.sum()), shape=list(scores.shape))
 
 
-def run_out_args(args, pool=512):
-    """A decode pool's NMS input (``serve_requests``' captured ``nms_rows``
-    call) with row 0's top ``pool + 8`` candidates made near-copies of one
-    box, so the pool runs out after its first pick and the rows rerun at
-    full width."""
+def run_out_args(args, pool=512, top=3.0):
+    """A pool's NMS input (a captured ``nms_rows`` call) with row 0's top
+    ``pool + 8`` candidates made near-copies of one box, scored from ``top``
+    down to ``top - 1`` (above every other score of the row), so the pool
+    runs out after its first pick and the rows rerun at full width."""
     import numpy as np
     import torch
 
@@ -1064,7 +1083,7 @@ def run_out_args(args, pool=512):
     boxes, scores = boxes.clone(), scores.clone()
     copy = torch.tensor([100.0, 100.0, 200.0, 220.0], device=boxes.device)
     boxes[idx] = copy + ramp[:, None]
-    scores[0, idx] = 3.0 - 2.0 * ramp
+    scores[0, idx] = top - 2.0 * ramp
     return [boxes, scores, ns, max_out, thr]
 
 
@@ -2093,6 +2112,411 @@ def no_kernel_records(serve, run, n_requests):
             "steps": run["steps"], "requests": n_requests}
 
 
+
+# --------------------------------------------------------------- LH-RCNN
+# the LH-RCNN training script's config (drivers/testlhrcnn.py)
+LHRCNN_CONFIG = {
+    "data_shape": [700, 1100, 3], "mode": "train", "is_pretraining": False,
+    "data_format": "channels_last", "num_classes": 20, "weight_decay": 1e-4,
+    "keep_prob": 0.5, "batch_size": 32, "rpn_first_step": 60000,
+    "rcnn_first_step": 100000, "rpn_second_step": 160000,
+    "nms_score_threshold": 0.5, "nms_max_boxes": 20, "nms_iou_threshold": 0.45,
+    "post_nms_proposal": 500, "compute_dtype": "bfloat16", "seed": 0}
+# tpudet's own warm-up lr at batch 32 (scripts/train_convergence.py's
+# LHRCNN-long2: 6e-4, its first segment 0.1x). At the script's 0.003 from
+# random weights, six bf16 RPN steps on an H100 left two centre coordinates
+# of sampled positive proposals exactly 0 (a bf16 pyx can make a_hw * pyx +
+# a_yx exactly 0), and quirk Q12 divides the RCNN box target by the centre:
+# the first RCNN step's loss was inf (lhrcnn_losses_vs_plain logs the count)
+LHRCNN_LR = 6e-5
+LHRCNN_ANCHORS = 6818  # of 11,550 on the 22x35 grid: the static border filter
+LHRCNN_PARAMS = 54920159
+# the eval-mode RPN's max |phw| must lie in this range with the initial
+# BatchNorm statistics, else they are taken from 4 seeded images: past 5,
+# exp(phw) blows the proposals up; under 0.05 the activations have vanished
+# through the ~40 eval-mode layers and every class score is 1/21
+LHRCNN_PHW_RANGE = (0.05, 5.0)
+LHRCNN_STEPS = 4  # measured steps a phase, after 2 warm-up steps
+
+
+def lhrcnn_model(dev, provider=None, **overrides):
+    from tpudet_torch.models import LHRCNN
+
+    t0 = time.perf_counter()
+    model = LHRCNN(dict(LHRCNN_CONFIG, **overrides), provider)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log(f"LHRCNN ({model.mode}, {model.compute_dtype}) built on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters, "
+        f"{model.anchors.yx.shape[0]} anchors, input {model.data_shape_hw}")
+    if model.device.type != dev.type:
+        raise AssertionError("LHRCNN must default to the card")
+    if LHRCNN_CONFIG["data_shape"] == [700, 1100, 3] and (
+            n_params != LHRCNN_PARAMS or model.anchors.yx.shape[0] != LHRCNN_ANCHORS):
+        raise AssertionError(f"LHRCNN at the driver's config must have {LHRCNN_PARAMS} "
+                             f"parameters and {LHRCNN_ANCHORS} anchors")
+    return model
+
+
+def record_nms_calls(fn):
+    """``fn()`` with every ``nms_rows`` call's arguments recorded (the
+    sorted scan's order computed where the wrapper computes it). Returns
+    the result and the calls."""
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    calls, real = [], nms_kernel.nms_rows
+
+    def spy(boxes, scores, ns, max_out, thr, order=None):
+        if order is None and nms_kernel.scan_path(scores.shape[1]) == "sorted_scan":
+            order = nms_kernel.stable_order(scores)
+        calls.append((boxes, scores, ns, max_out, thr, order))
+        return real(boxes, scores, ns, max_out, thr, order)
+
+    nms_kernel.nms_rows = spy
+    try:
+        out = fn()
+    finally:
+        nms_kernel.nms_rows = real
+    return out, calls
+
+
+def lhrcnn_network_vs_cpu(model, x, outputs):
+    """The net's three maps on the card against the CPU's, as
+    ``network_vs_cpu_normwise``, and the RoI head on 64 crops of the card's
+    thin map, held the same way."""
+    import torch
+
+    from tpudet_torch.heads import lhrcnn as lh
+    from tpudet_torch.ops import roi
+
+    out = network_vs_cpu_normwise(model, x, outputs)
+    gen = torch.Generator().manual_seed(23)
+    y1x1 = torch.rand((1, 64, 2), generator=gen) * 0.7
+    boxes = torch.cat([y1x1, y1x1 + 0.05 + torch.rand((1, 64, 2), generator=gen) * 0.3], -1)
+    crops = roi.crop_and_resize(outputs[2], boxes.to(x.device), lh.CROP)[0]
+    card = model.net.roi_head(crops)
+    head = model.net.rcnn.head.to("cpu")
+    try:
+        want = head(crops.cpu())
+        with torch.backends.mkldnn.flags(enabled=False):
+            other = head(crops.cpu())
+    finally:
+        head.to(x.device)
+
+    def rel(got, ref):
+        return float(torch.linalg.vector_norm(got.cpu() - ref)
+                     / torch.linalg.vector_norm(ref))
+
+    card_err = max(rel(g, w) for g, w in zip(card, want))
+    cpu_err = max(rel(g, w) for g, w in zip(other, want))
+    log(f"RoI head on 64 crops of the card's thin map, card vs CPU, normwise: "
+        f"{card_err:.2e}, against {cpu_err:.2e} between the CPU's two orders")
+    if card_err > max(1e-4, 4 * cpu_err):
+        raise AssertionError(f"RoI head on the card vs the CPU: {card_err}")
+    return dict(out, roi_head=card_err, roi_head_cpu_orders=cpu_err)
+
+
+def phase_lhrcnn_serve(dev, n_requests=10):
+    """LH-RCNN at its training script's config in test mode, fp32. The
+    BatchNorm statistics come from 4 seeded images where the initial ones
+    put the RPN's max ``|phw|`` outside ``LHRCNN_PHW_RANGE``; the score threshold is
+    the ``FCOS_QUANTILE`` quantile of a probe image's class scores over its
+    500 proposals (a 21-way softmax of random weights sits near 1/21, under
+    the script's 0.5). Per request: the sorted scan on the proposal pool [1,
+    1000] of [1, 6818] and on the class rows [20, 500], a per-pick rerun at
+    [1, 6818] only when the proposal pool runs out (counted), no
+    assignment."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.heads import lhrcnn as lh
+
+    model = lhrcnn_model(dev, mode="test", compute_dtype="float32")
+    h, w = model.data_shape_hw
+    rng = np.random.default_rng(11)
+    probe = model._images_to_device(rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32))
+
+    def phw_peak():
+        with torch.inference_mode():
+            out = model.net.eval()(model._preprocess(probe))
+            return out, float(model._split_rpn(out[0], out[1])[1].abs().max())
+
+    _, peak = phw_peak()
+    calibrated = not LHRCNN_PHW_RANGE[0] <= peak <= LHRCNN_PHW_RANGE[1]
+    if calibrated:
+        calibrate_batchnorm(model, rng.uniform(0, 255, (4, h, w, 3)).astype(np.float32))
+    outputs, after = phw_peak()
+    with torch.inference_mode():
+        pyx, phw, pconf = model._split_rpn(outputs[0], outputs[1])
+        _, sel_valid, rconf, _ = lh.lhrcnn_rois(
+            model.net.roi_head, outputs[2][0], pyx[0], phw[0], pconf[0], model.anchors,
+            float(h), float(w), model.post_nms_proposal)
+        conf = torch.softmax(rconf, -1)
+        keep = sel_valid & (torch.argmax(conf, -1) < 20)
+        scores = conf[keep][:, :20]
+        thr = float(f"{float(torch.quantile(scores.flatten(), FCOS_QUANTILE)):.3g}")
+        at_half = int((scores >= 0.5).sum())
+        chosen = (scores >= thr).sum(0)
+    model.nms_score_threshold = thr
+    log(f"LHRCNN serve: max |phw| {peak:.3g} with the initial BatchNorm statistics"
+        f"{f', {after:.3g} after taking them from 4 images' if calibrated else ''}; the "
+        f"probe's proposal NMS kept {int(sel_valid.sum())} of 500, {int(keep.sum())} not "
+        f"background; class scores span [{float(scores.min()):.3g}, "
+        f"{float(scores.max()):.3g}], {at_half} at the script's 0.5; score threshold "
+        f"{thr} (quantile {FCOS_QUANTILE}): candidates a class row holds of 500: "
+        f"{chosen.tolist()}")
+    out = serve_requests(dev, model, (h, w), n_requests, lhrcnn_network_vs_cpu)
+    counts = out["counts"]
+    reruns = counts["per_pick"]
+    if (counts["sorted_scan"] != 2 * n_requests or counts["assign"]
+            or counts["nms_rows"] != 2 * n_requests + reruns or reruns > n_requests):
+        raise AssertionError(f"LHRCNN serving: expected two sorted scans (and a per-pick "
+                             f"rerun when the proposal pool runs out) and no assignment "
+                             f"a request, got {counts}")
+    pool_args = out["kernel_args"]
+    if (tuple(pool_args[1].shape) != (1, LHRCNN_ANCHORS)
+            or tuple(pool_args[5].shape) != (1, 1000)):
+        raise AssertionError(f"LHRCNN proposal pool {tuple(pool_args[5].shape)} of "
+                             f"{tuple(pool_args[1].shape)}")
+    x = model._images_to_device(np.random.default_rng(1).uniform(
+        0, 255, (1, h, w, 3)).astype(np.float32))
+    with torch.inference_mode():
+        outputs = model.net(model._preprocess(x))
+        _, calls = record_nms_calls(lambda: model._decode_outputs(outputs))
+    class_args = calls[-1]
+    if tuple(class_args[1].shape) != (20, 500):
+        raise AssertionError(f"LHRCNN class rows {tuple(class_args[1].shape)}")
+    log(f"LHRCNN serving: {reruns} of {n_requests} requests ran out of the proposal pool "
+        f"and reran at full width; class rows {tuple(class_args[1].shape)}")
+    out.update(score_threshold=thr, calibrated=calibrated, head_peak=peak,
+               head_peak_after=after, candidates=chosen.tolist(),
+               candidates_at_half=at_half, pool_reruns=reruns, class_args=class_args)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def snapshot(model, scopes):
+    """Copies of the parameters and Momentum velocities under ``scopes``."""
+    keep = [k for k, _ in model.net.named_parameters() if k.split(".", 1)[0] in scopes]
+    params = dict(model.net.named_parameters())
+    return ({k: params[k].detach().clone() for k in keep},
+            {k: model.velocity[k].clone() for k in keep})
+
+
+def unchanged(model, before) -> bool:
+    """Whether the parameters and velocities of ``before`` are bit for bit."""
+    import torch
+
+    params = dict(model.net.named_parameters())
+    return (all(torch.equal(params[k], v) for k, v in before[0].items())
+            and all(torch.equal(model.velocity[k], v) for k, v in before[1].items()))
+
+
+def lhrcnn_image_losses(model, images, gt, phase):
+    """Each image's loss of ``phase`` (without weight decay) on one
+    train-mode forward of the batch, without an update: the RPN loss of
+    ``rpn_loss_and_sample``, or ``rcnn_losses`` over the image's own 384
+    sampled proposals."""
+    import torch
+
+    from tpudet_torch.heads import lhrcnn as lh
+
+    outputs, g = train_heads(model, images, gt, lambda o: o)
+    h, w = model.data_shape_hw
+    with torch.no_grad():
+        sample = lh.rpn_loss_and_sample(*model._split_rpn(outputs[0], outputs[1]),
+                                        model.anchors, g)
+        if phase == "rpn":
+            return sample.rpn_loss.float().cpu()
+        return torch.stack([lh.rcnn_losses(
+            model.net.roi_head, outputs[2][i:i + 1],
+            lh.RPNSample(*(t[i:i + 1] for t in sample)), float(h), float(w),
+            model.num_classes) for i in range(len(images))]).float().cpu()
+
+
+def lhrcnn_phase_run(model, images, gt, phase, warmup=2):
+    """``warmup`` steps and a ``train_one_epoch`` of ``LHRCNN_STEPS`` in one
+    phase, from the model's ``global_step``: two NMS launches a step (the
+    sorted scans of the positive and negative pools; a per-pick rerun when
+    a pool runs out, counted), no assignment, a finite loss every step, the
+    other phase's parameters and velocities bit for bit; a profiled step and
+    peak memory.
+
+    The loss must fall over the phase as the median of the 32 images'
+    losses (:func:`lhrcnn_image_losses`, before the first step and after
+    the last), not as the batch loss of single steps: the reference averages
+    each image's RPN coordinate loss over its own positives (times 10), so
+    an image with one positive puts one anchor's regression at full weight,
+    and from random weights those few regressions swing while the rest fall
+    (on the CPU at batch 32, float32, lr 0.003: the median image 22.6 ->
+    13.9 over the RPN phase, three one-positive images 47, 29 and 8 -> 220,
+    226 and 152, the batch loss 24.4 ... 24.5)."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.models.lhrcnn import RCNN_SCOPES, RPN_SCOPES
+
+    if model.is_rpn_step(model.global_step) != (phase == "rpn"):
+        raise AssertionError(f"global_step {model.global_step} is not in the {phase} phase")
+    torch.cuda.reset_peak_memory_stats()
+    before = snapshot(model, RCNN_SCOPES if phase == "rpn" else RPN_SCOPES)
+    start = model.global_step
+    first = lhrcnn_image_losses(model, images, gt, phase)
+    run = run_epoch(model, images, gt, warmup, LHRCNN_LR)
+    last = lhrcnn_image_losses(model, images, gt, phase)
+    counts, steps, losses = run["counts"], run["steps"], run["losses"]
+    log(f"LHRCNN {phase} phase, bf16, global_step {start}..{model.global_step - 1}: "
+        f"{warmup} warm-up steps + {steps} in train_one_epoch at lr {LHRCNN_LR}; kernel "
+        f"launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
+    if (steps != LHRCNN_STEPS or counts["assign"] or counts["sorted_scan"] != 2 * steps
+            or counts["nms_rows"] != 2 * steps + counts["per_pick"]):
+        raise AssertionError(f"the LHRCNN {phase} step must launch the NMS kernel's sorted "
+                             f"scan twice (and the per-pick kernel when a pool runs out) "
+                             f"and no assignment: {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    median = [float(first.median()), float(last.median())]
+    run["image_loss_median"], run["images_fell"] = median, int((last < first).sum())
+    log(f"LHRCNN {phase} phase: the median image's loss {median[0]:.4f} -> "
+        f"{median[1]:.4f} ({run['images_fell']} of {len(first)} images fell; the "
+        f"largest {float(first.max()):.4f} -> {float(last.max()):.4f}); the batch loss "
+        f"of the last step {'below' if losses[-1] < losses[0] else 'not below'} the first")
+    if not median[1] < median[0]:
+        raise AssertionError(f"the median image's {phase} loss did not fall: {median}")
+    if not unchanged(model, before):
+        raise AssertionError(f"the {phase} phase moved the other phase's parameters or "
+                             f"velocities")
+    log(f"LHRCNN {phase} phase: the other phase's {len(before[0])} parameters and their "
+        f"velocities bit for bit; {run['images_per_s']:.1f} images/s by the host clock, "
+        f"{run['step_ms']:.3f} ms/step by CUDA events, epoch mean {run['mean']:.4f}")
+    run["profile"] = profile_step(model, images, gt, LHRCNN_LR)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"LHRCNN {phase} phase peak device memory {run['peak_gib']:.2f} GiB")
+    return run
+
+
+def lhrcnn_losses_vs_plain(model, images, gt):
+    """``rpn_loss_and_sample`` and ``rcnn_losses`` with the NMS kernel ==
+    with its plain version, exactly, on one train-mode forward's outputs;
+    the two sampling pools' ``nms_rows`` inputs."""
+    import torch
+
+    from tpudet_torch.heads import lhrcnn as lh
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    outputs, g = train_heads(model, images, gt, lambda o: o)
+    heads = model._split_rpn(outputs[0], outputs[1])
+    h, w = model.data_shape_hw
+
+    def sample():
+        return lh.rpn_loss_and_sample(*heads, model.anchors, g)
+
+    with torch.no_grad():
+        with_kernel, calls = record_nms_calls(sample)
+        box = with_kernel.pos_proposal
+        centre = (box[..., :2] + box[..., 2:]) / 2.0
+        real = nms_kernel.nms_rows
+        nms_kernel.nms_rows = nms_kernel.plain_rows
+        try:
+            with_plain = sample()
+        finally:
+            nms_kernel.nms_rows = real
+        torch.cuda.synchronize()
+        for name, got, want in zip(with_kernel._fields, with_kernel, with_plain):
+            if not torch.equal(got, want):
+                raise AssertionError(f"rpn_loss_and_sample's {name} with the NMS kernel != "
+                                     f"with the plain version")
+        valid = with_kernel.pos_valid[..., None]
+        bad = (~torch.isfinite(with_kernel.pos_truth) & valid).sum((0, 1)).tolist()
+        log(f"rpn_loss_and_sample on one step's head outputs: kernel == plain version on "
+            f"the card, every field ({int(with_kernel.pos_valid.sum())} positives and "
+            f"{int(with_kernel.neg_valid.sum())} negatives sampled, mean rpn_loss "
+            f"{float(with_kernel.rpn_loss.mean()):.6f}); max |phw| over the anchors "
+            f"{float(heads[1].abs().max()):.4g}; non-finite RCNN box targets of the valid "
+            f"positives (y, x, h, w): {bad}; their centre coordinates exactly 0 "
+            f"(Q12 divides by the centre): "
+            f"{int(((centre == 0) & valid).sum())}")
+        loss_kernels_vs_plain("rcnn_losses", lambda: lh.rcnn_losses(
+            model.net.roi_head, outputs[2], sample(), float(h), float(w),
+            model.num_classes))
+    pos, neg = [c for c in calls if c[5] is not None][:2]  # not the full-width reruns
+    if (tuple(pos[0].shape) != (TRAIN_BATCH, LHRCNN_ANCHORS + 60, 4)
+            or tuple(neg[0].shape) != (LHRCNN_ANCHORS, 4)
+            or tuple(pos[5].shape) != (TRAIN_BATCH, 512)
+            or tuple(neg[5].shape) != (TRAIN_BATCH, 512)):
+        raise AssertionError(f"LHRCNN sampling pools: {tuple(pos[5].shape)} of "
+                             f"{tuple(pos[0].shape)}, {tuple(neg[5].shape)} of "
+                             f"{tuple(neg[0].shape)}")
+    return pos, neg
+
+
+def phase_lhrcnn_train(dev):
+    """The training script's config (batch 32, bf16, lr 0.003, its phase
+    schedule as it is) on one fixed batch: the RPN phase from global_step 0,
+    then the RCNN phase from ``rpn_first_step`` (60000), each 2 warm-up
+    steps and a ``train_one_epoch`` of 4; the losses with the kernel == with
+    the plain version."""
+    import torch
+
+    images, gt = retina_batch(15, TRAIN_BATCH, LHRCNN_CONFIG["data_shape"][:2])
+    log(f"LHRCNN train batch: images {images.shape}, gt {gt.shape} with "
+        f"{int((gt[..., 0] >= 0).sum())} objects")
+    model = lhrcnn_model(dev, feed((images, gt), LHRCNN_STEPS, TRAIN_BATCH))
+    rpn = lhrcnn_phase_run(model, images, gt, "rpn")
+    pos, neg = lhrcnn_losses_vs_plain(model, images, gt)
+    model.global_step = model.rpn_first_step
+    rcnn = lhrcnn_phase_run(model, images, gt, "rcnn")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rpn=rpn, rcnn=rcnn, pos_args=pos, neg_args=neg)
+
+
+def phase_lhrcnn_kernels(serve, train):
+    """The NMS kernel at LH-RCNN's shapes against its plain version, timed:
+    the two sampling pools ([32, 512] of [32, 6878] per-row boxes, of [32,
+    6818] shared anchors), the decode's two sorted scans ([1, 1000] of [1,
+    6818]; [20, 500]) and the negative pool forced to run out, rerun at
+    full width by the per-pick kernel ([32, 6818], 256 picks)."""
+    out = {}
+    for key, what, args in (
+            ("positive_pool", "LHRCNN's positive pool (per-row boxes, cap 128)",
+             train["pos_args"]),
+            ("negative_pool", "LHRCNN's negative pool (cap 256)", train["neg_args"]),
+            ("proposal_pool", "LHRCNN's proposal pool (500 picks)", serve["kernel_args"]),
+            ("class_rows", "LHRCNN's class rows", serve["class_args"])):
+        out[key] = nms_pool_timing(args)
+        log_pool(what, out[key])
+    neg_scores = train["neg_args"][1]
+    out["run_out_full_width"] = pool_run_out("LHRCNN negatives", run_out_args(
+        train["neg_args"], top=float(neg_scores[0].max()) + 3.0))
+    return out
+
+
+def lhrcnn_records(serve, train, kern, n_requests):
+    """LH-RCNN's entries of the kernels' JSON record."""
+    s_counts = serve["counts"]
+    t_counts = {k: train["rpn"]["counts"][k] + train["rcnn"]["counts"][k]
+                for k in s_counts}
+    steps = train["rpn"]["steps"] + train["rcnn"]["steps"]
+    pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
+                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")
+    nms = {"launches": s_counts["nms_rows"] + t_counts["nms_rows"],
+           "launches_per_request": s_counts["nms_rows"] / n_requests,
+           "launches_per_step": t_counts["nms_rows"] / steps,
+           "launches_by_path": {k: s_counts[k] + t_counts[k]
+                                for k in ("sorted_scan", "per_pick")},
+           "proposal_pool_reruns": serve["pool_reruns"],
+           "score_threshold": serve["score_threshold"],
+           **{key: {k: kern[key][k] for k in pool_keys} for key in (
+               "positive_pool", "negative_pool", "proposal_pool", "class_rows")},
+           "run_out_full_width": {k: kern["run_out_full_width"][k] for k in (
+               "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks", "shape")}}
+    assign = {"launches": s_counts["assign"] + t_counts["assign"],
+              "launches_per_request": s_counts["assign"] / n_requests,
+              "launches_per_step": t_counts["assign"] / steps}
+    return nms, assign
+
+
 def main() -> int:
     import torch
 
@@ -2199,6 +2623,21 @@ def main() -> int:
     cn_serve = phase_centernet_serve(dev, n_requests)
     cn_run = phase_centernet_train(dev)
     cn_records = no_kernel_records(cn_serve, cn_run, n_requests)
+    # 15. LH-RCNN: serve, both training phases, the NMS kernel at its shapes
+    lh_serve = phase_lhrcnn_serve(dev, n_requests)
+    lh_train = phase_lhrcnn_train(dev)
+    lh_kern = phase_lhrcnn_kernels(lh_serve, lh_train)
+    lh_nms, lh_assign = lhrcnn_records(lh_serve, lh_train, lh_kern, n_requests)
+    log(json.dumps({"lhrcnn": {
+        "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
+        "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
+        "decode_ms": lh_serve["decode_ms"], "network_vs_cpu": lh_serve["network_vs_cpu"],
+        **{k: lh_serve[k] for k in ("score_threshold", "candidates", "calibrated",
+                                     "head_peak", "head_peak_after", "pool_reruns")},
+        **{f"train_bf16_{phase}": {k: lh_train[phase][k] for k in (
+            "images_per_s", "step_ms", "losses", "counts", "peak_gib", "profile")}
+           for phase in ("rpn", "rcnn")},
+        "kernels": lh_kern}}))
     for key, serve_f, run_f in (("fcos", fcos_serve, fcos_run),
                                 ("centernet", cn_serve, cn_run)):
         log(json.dumps({key: {
@@ -2265,7 +2704,7 @@ def main() -> int:
                       + sum(f["records"][0]["launches"] for f in refine.values())
                       + ssd512["records"][0]["launches"]
                       + sum(f["records"][0]["launches"] for f in yolo.values())
-                      + fcos_nms["launches"]),
+                      + fcos_nms["launches"] + lh_nms["launches"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -2314,7 +2753,7 @@ def main() -> int:
          **{key: f["records"][0] for key, f in refine.items()},
          "ssd512": ssd512["records"][0],
          **{key: f["records"][0] for key, f in yolo.items()},
-         "fcos": fcos_nms, "centernet": cn_records},
+         "fcos": fcos_nms, "centernet": cn_records, "lhrcnn": lh_nms},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -2335,7 +2774,7 @@ def main() -> int:
          **{key: f["records"][1] for key, f in refine.items()},
          "ssd512": ssd512["records"][1],
          **{key: f["records"][1] for key, f in yolo.items()},
-         "fcos": fcos_assign, "centernet": cn_records},
+         "fcos": fcos_assign, "centernet": cn_records, "lhrcnn": lh_assign},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

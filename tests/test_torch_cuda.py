@@ -407,3 +407,117 @@ def test_centernet_out_of_range_label_gives_a_finite_loss_on_the_card(cuda_devic
     x = torch.arange(8.0, device=cuda_device)
     assert float((x * 2).sum()) == 56.0
     torch.cuda.synchronize()
+
+
+def _lhrcnn_rows(device, b=4, hw=(448, 704)):
+    """LH-RCNN's sampling NMS inputs at 448x704 (a 14x22 grid, 2265 kept
+    anchors): seeded RPN outputs and 1-10 gts an image (image 0 none)."""
+    from tpudet_torch.heads import lhrcnn as t_lh
+
+    anc, keep = t_lh.build_anchors(-(-hw[0] // 32), -(-hw[1] // 32), 32.0, *hw,
+                                   device=device)
+    a = int(keep.sum())
+    rng = np.random.default_rng(8)
+    pconf = torch.from_numpy((2.0 * rng.normal(size=(b, a, 2))).astype(np.float32))
+    gt = rand_gt(rng, b, 60, 10, size=float(min(hw)), n_valid_min=1)
+    gt[0] = -1
+    return anc, t_lh.rpn_rows(pconf.to(device), anc, torch.from_numpy(gt).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["positive", "negative"])
+def test_lhrcnn_sampling_pools_equal_plain(cuda_device, pool):
+    """LH-RCNN's two sampling NMS calls on the card at reduced width, each
+    through its 512-wide pool (one sorted scan, with a per-pick rerun where
+    a pool runs out) and equal to the plain version: the positives over
+    per-row boxes [4, 60 + 2265, 4] with per-row budgets ``chosen_pos``, the
+    negatives over the shared anchors with budgets ``256 - chosen_pos``."""
+    from tpudet_torch.heads import lhrcnn as t_lh
+
+    anc, rows = _lhrcnn_rows(cuda_device)
+    if pool == "positive":
+        boxes, active, budget, cap = rows.row_boxes, rows.row_valid, rows.chosen_pos, 128
+        assert boxes.dim() == 3
+    else:
+        boxes = torch.cat([anc.y1x1, anc.y2x2], -1)
+        active, budget, cap = rows.neg, rows.chosen_neg, 256
+        assert (budget[1:] == 256 - rows.chosen_pos[1:]).all() and budget[0] == 256
+    scores = torch.where(active, rows.row_obj_prob if pool == "positive" else rows.neg_ce,
+                         t_nms.NEG).contiguous()
+    before = dict(nms_kernel.launches_by_path)
+    got = nms_kernel.batched_greedy_nms_pretopk(boxes.contiguous(), scores, budget, cap, 0.7)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches_by_path["sorted_scan"] == before["sorted_scan"] + 1
+    want = t_nms.batched_greedy_nms(boxes.cpu(), scores.cpu(), budget.cpu(), cap, 0.7)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    sel = t_lh.rpn_select(rows, anc)
+    assert torch.equal(sel[0 if pool == "positive" else 2], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_out", [False, True])
+def test_lhrcnn_proposal_pool_equals_plain(cuda_device, run_out):
+    """The decode's proposal NMS: 500 picks through a 1000-wide pool (a
+    16-word mask row) of one row of 2265 proposals, the sorted scan on the
+    card == the plain version; with ``run_out`` the top 1008 proposals are
+    near-copies of one box, so the pool runs out and the per-pick kernel
+    reruns the row at full width."""
+    rng = np.random.default_rng(9)
+    n = 2265
+    yx = rng.uniform(0, 700, (n, 2))
+    hw = rng.uniform(8, 300, (n, 2))
+    boxes = np.concatenate([yx - hw / 2, yx + hw / 2], -1).astype(np.float32)[None]
+    scores = rng.uniform(0, 1, (1, n)).astype(np.float32)
+    if run_out:
+        idx = rng.permutation(n)[:1008]
+        boxes[0, idx] = [100.0, 100.0, 200.0, 220.0] + np.linspace(0, 0.5, 1008)[:, None]
+        scores[0, idx] = 3.0 - np.linspace(0, 2, 1008)
+    cpu = [torch.from_numpy(boxes), torch.from_numpy(scores),
+           torch.tensor([500], dtype=torch.int32)]
+    assert nms_kernel.mask_stride(1000) == 16
+    before = dict(nms_kernel.launches_by_path)
+    got = nms_kernel.batched_greedy_nms_pretopk(*(t.to(cuda_device) for t in cpu), 500, 0.7)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    assert used == {"sorted_scan": 1, "per_pick": int(run_out)}
+    want = t_nms.batched_greedy_nms(*cpu, 500, 0.7)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert int(want[1].sum()) > (1 if run_out else 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase,step", [("rpn", 0), ("rcnn", 3)])
+def test_lhrcnn_train_step_on_the_card(cuda_device, phase, step):
+    """One LHRCNN step per phase at 192x320, batch 2, on the card: exactly
+    two NMS launches' worth of calls (the two sampling pools), no
+    assignment, a finite loss, and the other phase's parameters and
+    velocities unchanged."""
+    from tpudet_torch.models import LHRCNN
+    from tpudet_torch.models.lhrcnn import RCNN_SCOPES, RPN_SCOPES
+
+    cfg = {"mode": "train", "data_shape": [192, 320, 3], "data_format": "channels_last",
+           "num_classes": 4, "weight_decay": 1e-4, "batch_size": 2, "rpn_first_step": 3,
+           "rcnn_first_step": 5, "rpn_second_step": 7, "compute_dtype": "bfloat16",
+           "seed": 3}
+    model = LHRCNN(cfg)
+    model.global_step = step
+    rng = np.random.default_rng(10)
+    images = rng.uniform(0, 255, (2, 192, 320, 3)).astype(np.float32)
+    gt = rand_gt(rng, 2, 60, 6, size=192.0, n_valid_min=1)
+    gt[..., 4] = np.where(gt[..., 0] >= 0, gt[..., 4] % 4, -1)
+    off = RCNN_SCOPES if phase == "rpn" else RPN_SCOPES
+    params = dict(model.net.named_parameters())
+    keys = [k for k in params if k.split(".", 1)[0] in off]
+    before = {k: (params[k].detach().clone(), model.velocity[k].clone()) for k in keys}
+    counts = (nms_kernel.launches, dict(nms_kernel.launches_by_path), assign_kernel.launches)
+    loss = model.train_step(*model._to_device(images, gt), 0.003)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert nms_kernel.launches_by_path["sorted_scan"] == counts[1]["sorted_scan"] + 2
+    assert nms_kernel.launches - counts[0] == 2 + (
+        nms_kernel.launches_by_path["per_pick"] - counts[1]["per_pick"])
+    assert assign_kernel.launches == counts[2]
+    for k, (p, v) in before.items():
+        assert torch.equal(params[k], p) and torch.equal(model.velocity[k], v), k

@@ -143,6 +143,10 @@ class DetectorBase:
         """The mask of real batch rows: one device never pads the batch."""
         return None
 
+    def _loss_label(self) -> str:
+        """The loss's name on the progress line."""
+        return "loss"
+
     # ------------------------------------------------------------ training
     def _images_to_device(self, images, dtype=None):
         """numpy ``images`` (NHWC, or NCHW for channels_first) -> float32 NCHW
@@ -202,7 +206,7 @@ class DetectorBase:
             losses.append(loss)
             if i >= sync_every or i + 1 == num_iters:
                 shown = float(losses[-1] if i + 1 == num_iters else losses[i - sync_every])
-            sys.stdout.write(f"\r>> iters {i}/{num_iters} loss {shown}")
+            sys.stdout.write(f"\r>> iters {i}/{num_iters} {self._loss_label()} {shown}")
             sys.stdout.flush()
             if writer is not None:
                 writer.add_summary(loss, global_step=self.global_step)
@@ -261,28 +265,31 @@ class DetectorBase:
         self.global_step = int(blob.get("global_step", 0))
         print("load weight", fname, "successfully")
 
-    def _load_backone(self, path: str, with_stats: bool):
-        """Restore the ``backone`` scope from tpudet's ``.tpudet`` or the
-        port's ``.pt`` (an exact file, a ``path-step`` prefix or a bare
-        prefix): its parameters, and its BatchNorm statistics where
-        ``with_stats`` and the file has them. Returns the file's name."""
+    def _load_scopes(self, path: str, scopes, with_stats: bool):
+        """Restore the net's top-level modules ``scopes`` (e.g. ``("backone",)``)
+        from tpudet's ``.tpudet`` or the port's ``.pt`` (an exact file, a
+        ``path-step`` prefix or a bare prefix): their parameters, and their
+        BatchNorm statistics where ``with_stats`` and the file has them.
+        Returns the file's name."""
         fname = ckpt.resolve(path)
         blob = ckpt.load_state(fname)
         if fname.endswith(ckpt.TPUDET_SUFFIX):
             collections = ("params", "batch_stats") if with_stats else ("params",)
-            state = transfer.from_flax({c: {"backone": blob[c]["backone"]}
-                                        for c in collections
-                                        if "backone" in blob.get(c, {})})
+            state = transfer.from_flax({c: {s: blob[c][s] for s in scopes
+                                            if s in blob.get(c, {})}
+                                        for c in collections})
         else:
             state = blob["state_dict"]
-        state = transfer.subtree(state, "backone")
-        if not with_stats:
-            names = dict(self.net.backone.named_parameters())
-            state = {k: v for k, v in state.items() if k in names}
-        missing, unexpected = self.net.backone.load_state_dict(state, strict=False)
-        if unexpected or any(not k.endswith((".mean", ".var")) for k in missing):
-            raise KeyError(f"the checkpoint's backone does not match the net's: missing "
-                           f"{missing}, unexpected {unexpected}")
+        for scope in scopes:
+            module = getattr(self.net, scope)
+            sub = transfer.subtree(state, scope)
+            if not with_stats:
+                names = dict(module.named_parameters())
+                sub = {k: v for k, v in sub.items() if k in names}
+            missing, unexpected = module.load_state_dict(sub, strict=False)
+            if unexpected or any(not k.endswith((".mean", ".var")) for k in missing):
+                raise KeyError(f"the checkpoint's {scope} does not match the net's: "
+                               f"missing {missing}, unexpected {unexpected}")
         return fname
 
 

@@ -63,5 +63,5 @@ class CenterNet(DetectorBase):
         """Restore the ``backone`` scope's parameters (its BatchNorm
         statistics stay, as in tpudet) from tpudet's ``.tpudet`` or the port's
         ``.pt`` (an exact file, a ``path-step`` prefix or a bare prefix)."""
-        fname = self._load_backone(path, with_stats=False)
+        fname = self._load_scopes(path, ("backone",), with_stats=False)
         print("load pretrained weight", fname, "successfully")

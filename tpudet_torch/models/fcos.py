@@ -42,5 +42,5 @@ class FCOS(DetectorBase):
         """Restore the ``backone`` scope's parameters from tpudet's
         ``.tpudet`` or the port's ``.pt`` (an exact file, a ``path-step``
         prefix or a bare prefix)."""
-        fname = self._load_backone(path, with_stats=False)
+        fname = self._load_scopes(path, ("backone",), with_stats=False)
         print("load pretrained weight", fname, "successfully")

@@ -48,7 +48,7 @@ class _YOLOBase(DetectorBase):
         """Restore the ``backone`` scope, parameters and (where the file has
         them) BatchNorm statistics, from tpudet's ``.tpudet`` or the port's
         ``.pt`` (an exact file, a ``path-step`` prefix or a bare prefix)."""
-        fname = self._load_backone(path, with_stats=True)
+        fname = self._load_scopes(path, ("backone",), with_stats=True)
         print(">> load pretraining weight", fname, "successfully")
 
 

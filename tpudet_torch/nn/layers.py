@@ -312,6 +312,21 @@ def he_truncated_normal_(weight: torch.Tensor,
                                      generator=generator)
 
 
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default kernel init, ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")``, drawn in place into an OIHW conv or ``[out, in]``
+    dense ``weight`` from the caller's generator: a normal truncated at +-2
+    std, std ``sqrt(1 / fan_in)`` after the cut, by its inverse CDF
+    (``nn.init.trunc_normal_`` takes ~6 s on one CPU thread for the 49M
+    weights of LH-RCNN's RoI head)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / TRUNC_NORMAL_STD
+    lo = math.erf(-2.0 / math.sqrt(2.0))  # 2 * cdf(-2) - 1
+    with torch.no_grad():
+        weight.uniform_(lo, -lo, generator=generator).erfinv_()
+        return weight.mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+
+
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """``tf.image.resize_bilinear`` with ``align_corners=False`` in TF1's rule,
     which has no half-pixel offset: ``src = dst * (in / out)``, on NCHW ``x``.

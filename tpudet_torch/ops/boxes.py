@@ -27,12 +27,13 @@ def area(hw: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_iou(g_y1x1, g_y2x2, a_y1x1, a_y2x2, eps: float = 0.0) -> torch.Tensor:
-    """``[G, A]`` IoU between ``[G, 2]`` and ``[A, 2]`` corner sets."""
-    inter_y1x1 = torch.maximum(g_y1x1[:, None, :], a_y1x1[None, :, :])
-    inter_y2x2 = torch.minimum(g_y2x2[:, None, :], a_y2x2[None, :, :])
+    """``[..., G, A]`` IoU between ``[..., G, 2]`` and ``[A, 2]`` (or
+    ``[..., A, 2]``) corner sets."""
+    inter_y1x1 = torch.maximum(g_y1x1[..., :, None, :], a_y1x1[..., None, :, :])
+    inter_y2x2 = torch.minimum(g_y2x2[..., :, None, :], a_y2x2[..., None, :, :])
     inter = torch.prod(torch.clamp(inter_y2x2 - inter_y1x1, min=0.0), dim=-1)
-    g_area = torch.prod(g_y2x2 - g_y1x1, dim=-1)[:, None]
-    a_area = torch.prod(a_y2x2 - a_y1x1, dim=-1)[None, :]
+    g_area = torch.prod(g_y2x2 - g_y1x1, dim=-1)[..., :, None]
+    a_area = torch.prod(a_y2x2 - a_y1x1, dim=-1)[..., None, :]
     return inter / (g_area + a_area - inter + eps)
 
 

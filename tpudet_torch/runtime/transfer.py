@@ -13,7 +13,11 @@ leaf by the port's module names, which are flax's:
     GroupNorms' ``.../gn/{scale,bias}`` and the GroupNorm ResNet's stem,
     ``init_conv/{kernel,bias}`` (a bare conv) and ``init_gn/{scale,bias}``;
   * the L2-norm ``scale`` of shape ``[1]`` (``l2_norm``, and RefineDet's and
-    PFPNet's ``feat1_l2_norm`` and ``feat2_l2_norm``).
+    PFPNet's ``feat1_l2_norm`` and ``feat2_l2_norm``);
+  * LH-RCNN's bias-free ``.../depthwise/kernel`` (HWIO ``[kh, kw, 1, C]`` ->
+    ``[C, 1, kh, kw]``) and ``.../pointwise/kernel``, converted as conv
+    kernels, and its RoI head's dense ``roi_feat_dense``, ``rcnn_pconf`` and
+    ``rcnn_pbbox`` (``kernel [in, out]`` -> ``weight [out, in]``; ``bias``).
 
 A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
 missing or extra key, or a shape that differs, raises too.
@@ -47,6 +51,14 @@ _LEAVES = {
     ("params", "init_conv", "bias"),
     ("params", "init_gn", "scale"),
     ("params", "init_gn", "bias"),
+    ("params", "depthwise", "kernel"),
+    ("params", "pointwise", "kernel"),
+    ("params", "roi_feat_dense", "kernel"),
+    ("params", "roi_feat_dense", "bias"),
+    ("params", "rcnn_pconf", "kernel"),
+    ("params", "rcnn_pconf", "bias"),
+    ("params", "rcnn_pbbox", "kernel"),
+    ("params", "rcnn_pbbox", "bias"),
 }
 
 
@@ -75,8 +87,12 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = np.asarray(leaf, np.float32)
             name = ".".join(path)
             if path[-1] == "kernel":
-                arr = (arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # IOHW, flipped
-                       if path[-2] == "dconv" else arr.transpose(3, 2, 0, 1))  # OIHW
+                if arr.ndim == 2:  # a dense kernel
+                    arr = arr.T
+                elif path[-2] == "dconv":
+                    arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # IOHW, flipped
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)  # OIHW
                 name = ".".join(path[:-1] + ("weight",))
             if name in out:
                 raise KeyError(f"flax leaf {name} appears twice")
