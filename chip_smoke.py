@@ -112,7 +112,23 @@ Phases, each raising on failure (nothing is caught):
      ``rpn_loss_and_sample`` and ``rcnn_losses`` with the kernel == with the
      plain version; then the NMS kernel timed on the four pools and on the
      negative pool forced to run out, rerun at [32, 6818] by the per-pick
-     kernel.
+     kernel;
+ 16. the feed: drivers/testSSD300.py's path at full width. The mini VOC set
+     (``tests/torch_data/voc_mini``, 8 images) replicated to 64 records,
+     written by the port's ``voc.dataset2tfrecord`` into 2 shards and read
+     back with every checksum verified; ``get_generator(shards, 32, 1024,
+     cfg)`` with the training script's augmentor config, 3 batches timed on the host
+     clock (and again with 4 worker threads), shapes and padding checked;
+     SSD300 at the script's config (bf16, batch 32, lr 0.01, no pretrained
+     weights) behind ``drivers/_common.py``'s provider: a warm-up epoch of 1 step, then
+     ``train_one_epoch`` over 3 steps with the port's ``SummaryWriter``,
+     finite losses, one assignment and one mining pool a step, the event
+     file read back (one event a step), images/s, the busy share of one
+     profiled step and peak memory beside phase 4's; then ``save_weight``,
+     ``load_weight`` into a test-mode SSD300 and ``evaluate_model`` (VOC07
+     mAP) on the 8 records at phase 3's score threshold: a finite mAP in
+     [0, 1], one decode pool per image, one image's decode with the kernel ==
+     with the plain version, seconds per image.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -690,8 +706,6 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
     import numpy as np
     import torch
 
-    from tpudet_torch.ops.cuda import nms_kernel
-
     rng = np.random.default_rng(1)
     images = [rng.uniform(0, 255, (1, *hw_of(size), 3)).astype(np.float32)
               for _ in range(n_requests)]
@@ -706,30 +720,13 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
     # one request's head outputs through decode with the kernel and with the
     # plain version, both on the card
     x = torch.from_numpy(images[0].transpose(0, 3, 1, 2).copy()).to(dev)
-    captured = {}
-    real_rows = nms_kernel.nms_rows
-
-    def capture(*a):
-        captured.setdefault("args", a)
-        return real_rows(*a)
-
     with torch.inference_mode():
         outputs = model.net(model._preprocess(x))
 
         def decode():
             return model._decode_outputs(outputs)
 
-        nms_kernel.nms_rows = capture
-        try:
-            with_kernel = decode()
-            nms_kernel.nms_rows = nms_kernel.plain_rows
-            with_plain = decode()
-        finally:
-            nms_kernel.nms_rows = real_rows
-        torch.cuda.synchronize()
-        for a, b in zip(with_kernel, with_plain):
-            if not torch.equal(a, b):
-                raise AssertionError("decode with the NMS kernel != with the plain version")
+        with_kernel, captured = decode_kernel_vs_plain(model, outputs)
         log(f"decode of one request: kernel == plain on the card "
             f"({int(with_kernel[3].sum())} detections)")
 
@@ -747,6 +744,36 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
         f"{max_out}, thr {thr}")
     return dict(latencies=latencies, p50=p50, counts=counts, network_ms=fwd_ms,
                 decode_ms=dec_ms, network_vs_cpu=net_check, kernel_args=captured["args"])
+
+
+def decode_kernel_vs_plain(model, outputs):
+    """``model._decode_outputs(outputs)`` with the NMS kernel == with its plain
+    version, exactly, on the card. Returns the decode and the kernel wrapper's
+    arguments in it: ``captured["args"]`` of its first call and, where a pool
+    ran out, ``captured["rerun"]`` of the full-width rerun."""
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    captured = {}
+    real_rows = nms_kernel.nms_rows
+
+    def capture(*a):
+        captured.setdefault("rerun" if "args" in captured else "args", a)
+        return real_rows(*a)
+
+    nms_kernel.nms_rows = capture
+    try:
+        with_kernel = model._decode_outputs(outputs)
+        nms_kernel.nms_rows = nms_kernel.plain_rows
+        with_plain = model._decode_outputs(outputs)
+    finally:
+        nms_kernel.nms_rows = real_rows
+    torch.cuda.synchronize()
+    for a, b in zip(with_kernel, with_plain):
+        if not torch.equal(a, b):
+            raise AssertionError("decode with the NMS kernel != with the plain version")
+    return with_kernel, captured
 
 
 def hw_of(size):
@@ -977,7 +1004,7 @@ def phase_train(dev, n_steps=10, warmup=2):
         f"{bf16['step_ms']:.3f} ms/step by CUDA events, epoch mean {bf16['mean']:.4f}")
 
     mining = loss_kernel_vs_plain(model, images, gt)
-    profile_step(model, images, gt)
+    bf16["profile"] = profile_step(model, images, gt)
     max_mem = torch.cuda.max_memory_allocated() / 2 ** 30
     del model
     torch.cuda.empty_cache()
@@ -992,6 +1019,7 @@ def phase_train(dev, n_steps=10, warmup=2):
     del model
     torch.cuda.empty_cache()
     log(f"peak device memory {max_mem:.2f} GiB (bf16 training)")
+    bf16["peak_gib"] = max_mem
     return dict(bf16=bf16, fp32=fp32, mining=mining)
 
 
@@ -2517,6 +2545,352 @@ def lhrcnn_records(serve, train, kern, n_requests):
     return nms, assign
 
 
+# --------------------------------------------------------------- the feed
+# drivers/testSSD300.py:33-44, copied: this script must not import that one,
+# which imports tpudet
+SSD300_AUGMENTOR = {
+    "data_format": "channels_last",
+    "output_shape": [300, 300],
+    "crop_method": "random",
+    "flip_prob": [0.0, 0.5],
+    "fill_mode": "BILINEAR",
+    "keep_aspect_ratios": False,
+    "constant_values": 0.0,
+    "color_jitter_prob": 0.5,
+    "rotate": [0.5, -5.0, -5.0],
+    "pad_truth_to": 60,
+}
+FEED_RECORDS = 64  # the mini set's 8 annotations, replicated under new names
+FEED_SHARDS = 2
+FEED_BATCHES = 3  # batches timed from the feed alone
+FEED_STEPS = 3  # steps of train_one_epoch on the feed
+FEED_WORKERS = 4  # the loader's decode/augment threads in the second feed timing
+EVAL_SCORE_THRESHOLD = 0.01  # phase 3's
+
+
+def voc_mini() -> Path:
+    return Path(__file__).resolve().parent / "tests" / "torch_data" / "voc_mini"
+
+
+def feed_records(tmp: Path):
+    """``FEED_RECORDS`` records from the mini set through the port's
+    ``voc.dataset2tfrecord`` into ``FEED_SHARDS`` shards, all read back with
+    their checksums verified."""
+    from tpudet_torch.data import tfrecord, voc
+
+    xmls = sorted((voc_mini() / "Annotations").glob("*.xml"))
+    if len(xmls) != 8:
+        raise AssertionError(f"the mini VOC set must hold 8 annotations: {xmls}")
+    xml_dir = tmp / "Annotations"
+    xml_dir.mkdir()
+    for i in range(FEED_RECORDS):
+        (xml_dir / f"rep_{i:04d}.xml").write_bytes(xmls[i % len(xmls)].read_bytes())
+    t = time.perf_counter()
+    shards = voc.dataset2tfrecord(str(xml_dir), str(voc_mini() / "JPEGImages"),
+                                  str(tmp / "records"), "voc", FEED_SHARDS)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    per_shard = [sum(1 for _ in tfrecord.read_records(path, verify=True))
+                 for path in shards]
+    read_s = time.perf_counter() - t
+    if sum(per_shard) != FEED_RECORDS:
+        raise AssertionError(f"read back {per_shard} records, wrote {FEED_RECORDS}")
+    sizes = [Path(path).stat().st_size for path in shards]
+    crcs = [f"{tfrecord.crc32c(Path(path).read_bytes()):08x}" for path in shards]
+    native = bool(tfrecord._load_native())
+    log(f"feed records: {FEED_RECORDS} written into {FEED_SHARDS} shards in "
+        f"{write_s:.3f} s and read back with every checksum verified in "
+        f"{read_s:.3f} s: records {per_shard}, bytes {sizes}, crc32c of each shard "
+        f"{crcs} (crc32c from {'the C library' if native else 'the numpy table'})")
+    return shards, dict(records=per_shard, bytes=sizes, shard_crc32c=crcs,
+                        write_s=write_s, read_verify_s=read_s, native_crc32c=native)
+
+
+def check_feed_batch(images, gt):
+    """A batch of the training script's feed: [32, 300, 300, 3] images and [32, 60, 5]
+    ground truth, padding rows all -1, at least one real box per image."""
+    import numpy as np
+
+    if images.shape != (TRAIN_BATCH, 300, 300, 3) or gt.shape != (TRAIN_BATCH, 60, 5):
+        raise AssertionError(f"feed batch shapes {images.shape}, {gt.shape}")
+    if images.dtype != np.float32 or gt.dtype != np.float32:
+        raise AssertionError(f"feed batch dtypes {images.dtype}, {gt.dtype}")
+    if not np.isfinite(images).all():
+        raise AssertionError("non-finite pixels in the feed")
+    real = gt[..., 0] >= 0
+    if not (gt[~real] == -1).all():
+        raise AssertionError("padding rows must be -1")
+    if not real.any(-1).all():
+        raise AssertionError("an image of the feed has no box")
+    return int(real.sum())
+
+
+def feed_alone(shards, num_workers):
+    """``FEED_BATCHES`` batches of ``get_generator(shards, 32, 1024, cfg)``
+    timed on the host clock from the loader's construction."""
+    from tpudet_torch.data import pipeline
+
+    t = time.perf_counter()
+    _, it = pipeline.get_generator(shards, TRAIN_BATCH, 1024, SSD300_AUGMENTOR,
+                                   num_workers=num_workers)
+    try:
+        boxes = [check_feed_batch(*next(it)) for _ in range(FEED_BATCHES)]
+    finally:
+        it.close()
+    wall = time.perf_counter() - t
+    rate = FEED_BATCHES * TRAIN_BATCH / wall
+    log(f"the feed alone, {num_workers} worker threads: {FEED_BATCHES} batches of "
+        f"[{TRAIN_BATCH}, 300, 300, 3] in {wall:.3f} s on the host clock, {rate:.1f} "
+        f"images/s; real boxes per batch {boxes}")
+    return dict(images_per_s=rate, wall_s=wall, boxes=boxes)
+
+
+def feed_breakdown(shards, n=TRAIN_BATCH):
+    """Host milliseconds an image of the feed takes in each stage, one thread:
+    the record's read and JPEG decode, then the augmentor."""
+    import numpy as np
+
+    from tpudet_torch.data import tfrecord, voc
+    from tpudet_torch.data.augment import image_augmentor
+
+    raw = [r for _, r in zip(range(n), tfrecord.read_records(shards[0]))]
+    t = time.perf_counter()
+    parsed = [voc.parse_voc_record(r) for r in raw]
+    decode_ms = (time.perf_counter() - t) * 1e3 / n
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    for image, shape, gt in parsed:
+        image_augmentor(image=image, input_shape=shape, ground_truth=gt, rng=rng,
+                        **SSD300_AUGMENTOR)
+    augment_ms = (time.perf_counter() - t) * 1e3 / n
+    log(f"the feed per image, one thread: read and decode {decode_ms:.3f} ms, "
+        f"augment {augment_ms:.3f} ms")
+    return dict(decode_ms=decode_ms, augment_ms=augment_ms)
+
+
+def feed_model(dev, shards):
+    """SSD300 at drivers/testSSD300.py's config (bf16, batch 32, no
+    pretrained weights) behind drivers/_common.py's provider around the
+    port's loader."""
+    from tpudet_torch.data import pipeline
+    from tpudet_torch.models.ssd import SSD300
+
+    config = {"mode": "train", "data_format": "channels_last", "num_classes": 20,
+              "weight_decay": 1e-4, "keep_prob": 0.5, "batch_size": TRAIN_BATCH,
+              "nms_score_threshold": 0.5, "nms_max_boxes": 20,
+              "nms_iou_threshold": 0.5, "compute_dtype": "bfloat16"}
+    provider = {
+        "data_shape": [300, 300, 3],
+        "num_train": TRAIN_BATCH,
+        "num_val": 0,
+        "train_generator": pipeline.get_generator(shards, TRAIN_BATCH, 1024,
+                                                  SSD300_AUGMENTOR),
+        "val_generator": None,
+    }
+    model = SSD300(config, provider)
+    if model.device.type != dev.type:
+        raise AssertionError("SSD300 must default to the card")
+    return model
+
+
+def profile_feed_step(model, lr):
+    """Device busy share of one ``train_one_epoch`` step on the feed, from
+    torch.profiler: the epoch restarts the loader, so the step waits for one
+    whole batch of the feed, then runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model.num_train = TRAIN_BATCH
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.train_one_epoch(lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy = sum(evt.time_range.elapsed_us() / 1e3 for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA)
+    if not busy:
+        log("profiler: no device events recorded over the feed's step")
+        return dict(wall_ms=wall_ms, busy_ms=None, busy_share=None)
+    log(f"profiler over one step on the feed: wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
+    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms)
+
+
+def phase_feed_train(dev, shards, tmp: Path, lr=0.01):
+    """One warm-up epoch of 1 step, then ``train_one_epoch`` over
+    ``FEED_STEPS`` steps on the feed with the port's ``SummaryWriter``, the
+    kernels' counts set to 0 just before it and read just after; then one
+    profiled step. The event file must hold one event a step."""
+    import math
+
+    import torch
+
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+    from tpudet_torch.runtime import summary
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = feed_model(dev, shards)
+    log(f"SSD300 (train, bf16) on the feed built in {time.perf_counter() - t0:.2f} s")
+    try:
+        warm = model.train_one_epoch(lr)
+        model.num_train = FEED_STEPS * TRAIN_BATCH
+        writer = summary.SummaryWriter(str(tmp / "events"))
+        torch.cuda.synchronize()
+        assign_kernel.launches = 0
+        reset_nms_counts()
+        t = time.perf_counter()
+        mean = model.train_one_epoch(lr, writer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches,
+                  **nms_kernel.launches_by_path}
+        writer.close()
+        profile = profile_feed_step(model, lr)
+    finally:
+        model.train_iterator.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (events_file,) = (tmp / "events").iterdir()
+    events = summary.read_events(str(events_file))
+    losses = [e["value"] for e in events[1:]]
+    log(f"bf16 on the feed: warm-up epoch of 1 step (loss {warm:.4f}), then "
+        f"{FEED_STEPS} steps in train_one_epoch: kernel launches {counts}, losses "
+        f"{[round(x, 4) for x in losses]} from the event file, epoch mean {mean:.4f}")
+    if events[0].get("file_version") != "brain.Event:2" or len(events) != 1 + FEED_STEPS:
+        raise AssertionError(f"the event file must hold the version event and one event "
+                             f"a step: {events}")
+    if [e["step"] for e in events[1:]] != list(range(2, 2 + FEED_STEPS)):
+        raise AssertionError(f"event steps {[e['step'] for e in events]}")
+    if not all(math.isfinite(x) for x in [warm, mean, *losses]):
+        raise AssertionError(f"non-finite loss on the feed: {warm}, {losses}")
+    if counts["assign"] != FEED_STEPS or counts["sorted_scan"] != FEED_STEPS:
+        raise AssertionError(f"each step on the feed must launch the assignment kernel "
+                             f"once and the mining pool once: {counts}")
+    rate = FEED_STEPS * TRAIN_BATCH / wall
+    log(f"bf16 train on the feed: {rate:.1f} images/s by the host clock over the epoch "
+        f"(the loader restarts with it), peak device memory {peak:.2f} GiB; "
+        f"{len(events)} events read back")
+    return model, dict(images_per_s=rate, wall_s=wall, losses=losses, warmup_loss=warm,
+                       counts=counts, profile=profile, peak_gib=peak, events=len(events))
+
+
+def feed_eval_records():
+    """The mini set's 8 records as the port's ``voc`` parses them: (image,
+    gt corner rows)."""
+    from tpudet_torch.data import example_proto, voc
+
+    records = []
+    for xml in sorted((voc_mini() / "Annotations").glob("*.xml")):
+        feats = voc.xml_to_features(str(xml), str(voc_mini() / "JPEGImages"))
+        image, _, gt = voc.parse_voc_record(example_proto.encode_example(feats))
+        records.append((image, gt))
+    return records
+
+
+def phase_feed_eval(dev, trained, tmp: Path):
+    """``save_weight``, ``load_weight`` into a test-mode SSD300, then
+    ``evaluate_model`` on the mini set's records with the training script's preprocess
+    config and phase 3's score threshold: one decode pool per image, a
+    finite mAP in [0, 1]; one image's decode with the kernel == plain."""
+    import math
+
+    import torch
+
+    from tpudet_torch.models.ssd import SSD300
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+    from tpudet_torch.runtime import evaluate
+
+    prefix = str(tmp / "ckpt" / "ssd300")
+    trained.save_weight("latest", prefix)
+    config = {"mode": "test", "data_format": "channels_last", "num_classes": 20,
+              "batch_size": 1, "weight_decay": 1e-4, "nms_score_threshold":
+              EVAL_SCORE_THRESHOLD, "nms_max_boxes": 20, "nms_iou_threshold": 0.5,
+              "seed": 1}
+    model = SSD300(config)
+    model.load_weight(prefix)
+    if model.global_step != trained.global_step or model.device.type != dev.type:
+        raise AssertionError("load_weight must restore the trained step on the card")
+    records = feed_eval_records()
+    evaluate.evaluate_model(model, records[:1], preprocess_config=SSD300_AUGMENTOR)
+    torch.cuda.synchronize()
+    assign_kernel.launches = 0
+    reset_nms_counts()
+    t = time.perf_counter()
+    mAP, aps = evaluate.evaluate_model(model, records, preprocess_config=SSD300_AUGMENTOR)
+    torch.cuda.synchronize()
+    s_per_image = (time.perf_counter() - t) / len(records)
+    counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path,
+              "assign": assign_kernel.launches}
+    log(f"evaluate_model on {len(records)} mini-set records: VOC07 mAP {mAP:.6f} over "
+        f"{len(aps)} classes, {s_per_image:.4f} s/image on the host clock; kernel "
+        f"launches {counts}")
+    if not (math.isfinite(mAP) and 0.0 <= mAP <= 1.0):
+        raise AssertionError(f"mAP {mAP} must be finite and in [0, 1]")
+    if counts["sorted_scan"] != len(records) or counts["assign"]:
+        raise AssertionError(f"evaluation must launch one decode pool per image and no "
+                             f"assignment: {counts}")
+    image, _ = records[0]
+    inp, _ = evaluate.eval_preprocess(image, 300, 300)
+    x = torch.from_numpy(inp.transpose(2, 0, 1)[None].copy()).to(dev)
+    with torch.inference_mode():
+        outputs = model.net(model._preprocess(x))
+        with_kernel, captured = decode_kernel_vs_plain(model, outputs)
+    log(f"evaluation's decode of one image: kernel == plain on the card "
+        f"({int(with_kernel[3].sum())} detections, the pool "
+        f"{'ran out' if 'rerun' in captured else 'held'})")
+    pool = nms_pool_timing(captured["args"])
+    log_pool("the evaluation's decode pool", pool)
+    full = None
+    if "rerun" in captured:
+        full = nms_full_timing(captured["rerun"])
+        log(f"the evaluation's full-width rerun {full['shape']} ({full['picks']} picks), "
+            f"per-pick: {[round(x, 4) for x in full['turns_ms']]} ms (device time "
+            f"{fmt_ms(full['device_ms'], 4)} ms), plain {full['plain_ms']:.4f} ms, bound "
+            f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
+    return dict(mAP=mAP, classes=len(aps), s_per_image=s_per_image, counts=counts,
+                images=len(records), decode_pool=pool, full_width=full)
+
+
+def phase_feed(dev, phase4):
+    """16. the feed: records, the feed alone, training on it, evaluation."""
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        shards, records = feed_records(tmp)
+        alone = feed_alone(shards, 0)
+        threads = feed_alone(shards, FEED_WORKERS)
+        per_image = feed_breakdown(shards)
+        model, train = phase_feed_train(dev, shards, tmp)
+        evaluation = phase_feed_eval(dev, model, tmp)
+        del model
+    import torch
+
+    torch.cuda.empty_cache()
+    p4 = phase4["bf16"]
+    p4_share = (p4["profile"]["busy_ms"] / p4["profile"]["wall_ms"]
+                if p4["profile"].get("busy_ms") else None)
+    log(f"the feed's cost, bf16 SSD300 at batch {TRAIN_BATCH}: "
+        f"{train['images_per_s']:.1f} images/s on the feed vs "
+        f"{p4['images_per_s']:.1f} on phase 4's fixed arrays; device busy over a "
+        f"profiled step {fmt_share(train['profile']['busy_share'])} vs "
+        f"{fmt_share(p4_share)}; peak {train['peak_gib']:.2f} GiB vs "
+        f"{p4['peak_gib']:.2f} GiB; phase 16 took {time.perf_counter() - t0:.1f} s")
+    return dict(records=records, feed_alone=alone, feed_threads=threads,
+                per_image=per_image, train=train, eval=evaluation,
+                phase4={"images_per_s": p4["images_per_s"], "busy_share": p4_share,
+                        "peak_gib": p4["peak_gib"]})
+
+
+def fmt_share(share) -> str:
+    return "not measured" if share is None else f"{100 * share:.1f}%"
+
+
 def main() -> int:
     import torch
 
@@ -2628,6 +3002,10 @@ def main() -> int:
     lh_train = phase_lhrcnn_train(dev)
     lh_kern = phase_lhrcnn_kernels(lh_serve, lh_train)
     lh_nms, lh_assign = lhrcnn_records(lh_serve, lh_train, lh_kern, n_requests)
+    # 16. the feed: VOC records, the loader, training on it, VOC07 evaluation
+    feed = phase_feed(dev, train)
+    f_train, f_eval = feed["train"], feed["eval"]
+    log(json.dumps({"feed": feed}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -2704,7 +3082,8 @@ def main() -> int:
                       + sum(f["records"][0]["launches"] for f in refine.values())
                       + ssd512["records"][0]["launches"]
                       + sum(f["records"][0]["launches"] for f in yolo.values())
-                      + fcos_nms["launches"] + lh_nms["launches"]),
+                      + fcos_nms["launches"] + lh_nms["launches"]
+                      + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -2753,12 +3132,25 @@ def main() -> int:
          **{key: f["records"][0] for key, f in refine.items()},
          "ssd512": ssd512["records"][0],
          **{key: f["records"][0] for key, f in yolo.items()},
-         "fcos": fcos_nms, "centernet": cn_records, "lhrcnn": lh_nms},
+         "fcos": fcos_nms, "centernet": cn_records, "lhrcnn": lh_nms,
+         "feed": {"launches": (f_train["counts"]["nms_rows"]
+                               + f_eval["counts"]["nms_rows"]),
+                  "launches_per_step": f_train["counts"]["nms_rows"] / FEED_STEPS,
+                  "launches_per_image": f_eval["counts"]["nms_rows"] / f_eval["images"],
+                  "launches_by_path": {k: f_train["counts"][k] + f_eval["counts"][k]
+                                       for k in ("sorted_scan", "per_pick")},
+                  "eval_decode_pool": {k: f_eval["decode_pool"][k] for k in (
+                      "ms", "device_ms", "per_pick_ms", "pool_call_ms", "plain_ms",
+                      "bound_ms", "bound_by", "picks", "shape", "full_shape")},
+                  "eval_full_width": f_eval["full_width"] and {
+                      k: f_eval["full_width"][k] for k in (
+                          "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks",
+                          "shape")}}},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
                       + sum(f["records"][1]["launches"] for f in refine.values())
-                      + ssd512["records"][1]["launches"]),
+                      + ssd512["records"][1]["launches"] + f_train["counts"]["assign"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -2774,7 +3166,10 @@ def main() -> int:
          **{key: f["records"][1] for key, f in refine.items()},
          "ssd512": ssd512["records"][1],
          **{key: f["records"][1] for key, f in yolo.items()},
-         "fcos": fcos_assign, "centernet": cn_records, "lhrcnn": lh_assign},
+         "fcos": fcos_assign, "centernet": cn_records, "lhrcnn": lh_assign,
+         "feed": {"launches": f_train["counts"]["assign"] + f_eval["counts"]["assign"],
+                  "launches_per_step": f_train["counts"]["assign"] / FEED_STEPS,
+                  "launches_per_image": f_eval["counts"]["assign"] / f_eval["images"]}},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -521,3 +521,45 @@ def test_lhrcnn_train_step_on_the_card(cuda_device, phase, step):
     assert assign_kernel.launches == counts[2]
     for k, (p, v) in before.items():
         assert torch.equal(params[k], p) and torch.equal(model.velocity[k], v), k
+
+
+@pytest.mark.cuda
+def test_metrics_trace_and_block_until_ready_on_the_card(cuda_device, tmp_path):
+    import os
+
+    from tpudet_torch.runtime import metrics
+
+    x = torch.ones(256, 256, device=cuda_device)
+    tree = {"a": x, "b": [torch.zeros(3, device=cuda_device), (x.sum(),)]}
+    with metrics.trace(str(tmp_path)) as prof:
+        y = x @ x
+        assert metrics.block_until_ready({"y": y, "tree": tree})["y"] is y
+    (name,) = os.listdir(tmp_path)
+    assert name.endswith(".json")
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert device_events, "the trace must hold the card's kernels"
+
+
+@pytest.mark.cuda
+def test_ssd300_evaluates_the_mini_voc_set_on_the_card(cuda_device):
+    """``evaluate_model`` on the card: one decode pool an image, a finite mAP."""
+    from pathlib import Path
+
+    from tpudet_torch.data import example_proto, voc
+    from tpudet_torch.runtime import evaluate
+
+    mini = Path(__file__).resolve().parent / "torch_data" / "voc_mini"
+    records = []
+    for xml in sorted((mini / "Annotations").glob("*.xml")):
+        feats = voc.xml_to_features(str(xml), str(mini / "JPEGImages"))
+        image, _, gt = voc.parse_voc_record(example_proto.encode_example(feats))
+        records.append((image, gt))
+    model = SSD300({"mode": "test", "data_format": "channels_last", "num_classes": 20,
+                    "batch_size": 1, "weight_decay": 5e-4, "nms_score_threshold": 0.01,
+                    "nms_max_boxes": 20, "nms_iou_threshold": 0.5, "seed": 0},
+                   device=cuda_device)
+    before = dict(nms_kernel.launches_by_path)
+    mAP, _ = evaluate.evaluate_model(model, records)
+    assert nms_kernel.launches_by_path["sorted_scan"] - before["sorted_scan"] == 8
+    assert np.isfinite(mAP) and 0.0 <= mAP <= 1.0

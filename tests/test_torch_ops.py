@@ -49,11 +49,35 @@ def _imports(path):
     return names
 
 
+def _top_level_imports(path):
+    """The top-level names of the modules ``path`` imports when it is itself
+    imported: every import outside a function's body."""
+    names = []
+
+    def visit(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                names.extend(a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                names.append(child.module or "")
+            visit(child)
+
+    visit(ast.parse(path.read_text()))
+    return names
+
+
 def _sources(group):
     """``port``: every file of ``tpudet_torch``. ``chip_smoke``: the script and
     the helpers of ``tests/`` it imports (it runs where JAX is absent)."""
     if group == "port":
-        return sorted((REPO / "tpudet_torch").rglob("*.py"))
+        paths = sorted((REPO / "tpudet_torch").rglob("*.py"))
+        names = {str(p.relative_to(REPO / "tpudet_torch")) for p in paths}
+        assert names >= {f"data/{m}.py" for m in (
+            "classes", "example_proto", "tfrecord", "voc", "augment", "pipeline",
+            "imagenet")} | {f"runtime/{m}.py" for m in ("evaluate", "metrics", "summary")}
+        return paths
     script = REPO / "chip_smoke.py"
     helpers = sorted(REPO / "tests" / f"{n}.py" for n in set(_imports(script))
                      if (REPO / "tests" / f"{n}.py").is_file())
@@ -63,8 +87,13 @@ def _sources(group):
 
 @pytest.mark.parametrize("group", ["port", "chip_smoke"])
 def test_port_sources_never_import_jax_flax_or_tpudet(group):
-    bad = [f"{path.name}: {n}" for path in _sources(group) for n in _imports(path)
-           if n.split(".")[0] in ("jax", "jaxlib", "flax", "tpudet")]
+    """Nor ``lxml`` anywhere (the card's machine has none), nor ``cv2`` or
+    ``PIL`` when a module is imported: only inside the function that decodes."""
+    sources = _sources(group)
+    bad = [f"{path.name}: {n}" for path in sources for n in _imports(path)
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "tpudet", "lxml")]
+    bad += [f"{path.name}: {n} at import" for path in sources
+            for n in _top_level_imports(path) if n.split(".")[0] in ("cv2", "PIL")]
     assert not bad, bad
 
 

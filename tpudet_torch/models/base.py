@@ -147,6 +147,15 @@ class DetectorBase:
         """The loss's name on the progress line."""
         return "loss"
 
+    def _data_shape_nhwc(self):
+        """``(h, w, 3)`` of the net's input (the evaluation's resize target):
+        ``data_shape_hw`` where the model has one, else the square
+        ``input_size``."""
+        hw = getattr(self, "data_shape_hw", None)
+        if hw is not None:
+            return (*hw, 3)
+        return (self.input_size, self.input_size, 3)
+
     # ------------------------------------------------------------ training
     def _images_to_device(self, images, dtype=None):
         """numpy ``images`` (NHWC, or NCHW for channels_first) -> float32 NCHW
