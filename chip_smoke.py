@@ -128,7 +128,22 @@ Phases, each raising on failure (nothing is caught):
      ``load_weight`` into a test-mode SSD300 and ``evaluate_model`` (VOC07
      mAP) on the 8 records at phase 3's score threshold: a finite mAP in
      [0, 1], one decode pool per image, one image's decode with the kernel ==
-     with the plain version, seconds per image.
+     with the plain version, seconds per image;
+ 17. the resident feed: the mini VOC set's 8 JPEGs decoded and resized once
+     to 300x300 uint8, replicated to 5,000 images (1.35 GB; each replica's
+     row id in its top-left pixel) and uploaded once into a ``DeviceDataset``
+     on the card; SSD300 at drivers/testSSD300.py's config with
+     ``device_augment`` (flips 0.5/0.5, colour jitter 0.5): 2 warm-up steps,
+     then scanned and per-step epochs of 10 steps in turns (scanned,
+     per-step, per-step, scanned), each with finite losses, one assignment and one mining pool a step, images/s, the busy
+     share of one profiled step, the gather's and the augment's device time
+     and peak memory beside phases 4 and 16; the augment on the card == on
+     the CPU with the same draws (flips exactly, colour within 2e-3); then
+     chunked residency (chunks of 1000, 4000 resident, a rotation every 2nd
+     pin) over 4 scanned epochs of 10 steps: pins, rotations and indices
+     equal a CPU dataset's on the same calls, each pinned chunk read back as
+     its rows, pool rows on the card after a rotation, each pin's upload and
+     wait logged.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -2887,6 +2902,308 @@ def phase_feed(dev, phase4):
                         "peak_gib": p4["peak_gib"]})
 
 
+# ------------------------------------------------------ the resident feed
+RESIDENT_IMAGES = 5000  # tpudet's convergence dataset (tpudet/data/device_dataset.py:6-9)
+RESIDENT_PAD = 60
+RESIDENT_AUGMENT = {"flip_prob": [0.5, 0.5], "color_jitter_prob": 0.5}
+RESIDENT_WARMUP = 2  # scanned steps before the measured epochs
+RESIDENT_STEPS = 10  # steps of each measured epoch (scanned, then per step)
+CHUNK_ROWS = 1000  # chunked residency: chunks of 1000 images,
+CHUNK_BUDGET_ROWS = 4000  # 4000 resident of the 5000,
+CHUNK_ROTATE = 2  # a refresh from the other 1000 every 2nd pin,
+CHUNK_EPOCHS = 4  # 4 scanned epochs of RESIDENT_STEPS steps
+AUGMENT_ATOL = 2e-3  # the colour's tolerance in tests/test_torch_device_feed.py
+
+
+def resident_arrays():
+    """The mini VOC set's 8 JPEGs decoded by ``voc.decode_jpeg`` (through
+    ``parse_voc_record``), resized once to 300x300 by ``image_augmentor``
+    with every random op off, rounded to uint8, boxes padded to 60 rows;
+    replicated to ``RESIDENT_IMAGES``, each replica's row id written into
+    its top-left pixel (red: the low byte, green: the high byte) so a chunk
+    on the card can be read back as the rows it holds."""
+    import numpy as np
+
+    from tpudet_torch.data import example_proto, voc
+    from tpudet_torch.data.augment import image_augmentor
+
+    base_images, base_gt = [], []
+    for xml in sorted((voc_mini() / "Annotations").glob("*.xml")):
+        feats = voc.xml_to_features(str(xml), str(voc_mini() / "JPEGImages"))
+        image, shape, gt = voc.parse_voc_record(example_proto.encode_example(feats))
+        image, gt = image_augmentor(image=image, input_shape=shape,
+                                    data_format="channels_last", output_shape=[300, 300],
+                                    ground_truth=gt, pad_truth_to=RESIDENT_PAD)
+        base_images.append(np.clip(np.round(image), 0, 255).astype(np.uint8))
+        base_gt.append(gt)
+    reps = np.arange(RESIDENT_IMAGES) % len(base_images)
+    images, gt = np.stack(base_images)[reps], np.stack(base_gt)[reps]
+    rows = np.arange(RESIDENT_IMAGES)
+    images[:, 0, 0, 0], images[:, 0, 0, 1] = rows & 255, rows >> 8
+    return images, gt
+
+
+def stamped_rows(chunk):
+    """The row ids written into the top-left pixels of ``chunk``'s images."""
+    px = chunk[:, 0, 0, :2].long().cpu().numpy()
+    return px[:, 0] + 256 * px[:, 1]
+
+
+def resident_model(dev, ds):
+    """SSD300 at drivers/testSSD300.py's config (bf16, batch 32, lr 0.01, no
+    pretrained weights) with ``device_augment``, fed by ``ds``."""
+    from tpudet_torch.models.ssd import SSD300
+
+    config = {"mode": "train", "data_format": "channels_last", "num_classes": 20,
+              "weight_decay": 1e-4, "keep_prob": 0.5, "batch_size": TRAIN_BATCH,
+              "nms_score_threshold": 0.5, "nms_max_boxes": 20,
+              "nms_iou_threshold": 0.5, "compute_dtype": "bfloat16",
+              "device_augment": RESIDENT_AUGMENT}
+    model = SSD300(config, {"data_shape": [300, 300, 3], "num_train": TRAIN_BATCH,
+                            "num_val": 0, "train_generator": ds, "val_generator": None})
+    if model.device.type != dev.type:
+        raise AssertionError("SSD300 must default to the card")
+    return model
+
+
+def resident_epoch(model, what, lr=0.01):
+    """One ``train_one_epoch`` of ``RESIDENT_STEPS`` steps with the kernels'
+    counts set to 0 just before it and read just after: finite losses, one
+    assignment and one mining pool a step."""
+    import math
+
+    import torch
+
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    model.num_train = RESIDENT_STEPS * TRAIN_BATCH
+    writer = StepLog()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    assign_kernel.launches = 0
+    reset_nms_counts()
+    t = time.perf_counter()
+    start.record()
+    mean = model.train_one_epoch(lr, writer)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches,
+              **nms_kernel.launches_by_path}
+    losses = [float(x) for x in writer.losses]
+    rate = RESIDENT_STEPS * TRAIN_BATCH / wall
+    log(f"bf16 on the resident set, {what}: {RESIDENT_STEPS} steps, kernel launches "
+        f"{counts}, losses {[round(x, 4) for x in losses]}, {rate:.1f} images/s by the "
+        f"host clock, {start.elapsed_time(end) / RESIDENT_STEPS:.3f} ms/step by CUDA events")
+    if len(losses) != RESIDENT_STEPS or not all(math.isfinite(x) for x in [mean, *losses]):
+        raise AssertionError(f"the {what} epoch's losses: {losses}")
+    if counts["assign"] != RESIDENT_STEPS or counts["sorted_scan"] != RESIDENT_STEPS:
+        raise AssertionError(f"each {what} step must launch the assignment kernel once and "
+                             f"the mining pool once: {counts}")
+    return dict(images_per_s=rate, wall_s=wall, losses=losses, counts=counts,
+                step_ms=start.elapsed_time(end) / RESIDENT_STEPS)
+
+
+def augment_card_vs_cpu(model, x, g, step):
+    """``apply_draws`` of one step's draws on the card == on the CPU: the
+    flips (and the gt) exactly, the colour within ``AUGMENT_ATOL``."""
+    import torch
+
+    from tpudet_torch.data import device_augment, prng
+
+    d = device_augment.draws(prng.fold_in(model._augment_key, step), x.shape[0],
+                             RESIDENT_AUGMENT)
+    out = {}
+    for name, cfg in (("flips", {"flip_prob": RESIDENT_AUGMENT["flip_prob"]}),
+                      ("both", RESIDENT_AUGMENT)):
+        card = device_augment.apply_draws(x, g, device_augment.to_device(d, x.device), cfg)
+        cpu = device_augment.apply_draws(x.cpu(), g.cpu(),
+                                         device_augment.to_device(d, "cpu"), cfg)
+        err = float(torch.max(torch.abs(card[0].cpu() - cpu[0])))
+        if not torch.equal(card[1].cpu(), cpu[1]):
+            raise AssertionError(f"the augment's gt on the card != on the CPU ({name})")
+        if (name == "flips" and err) or err > AUGMENT_ATOL:
+            raise AssertionError(f"the augment's images on the card differ from the CPU's "
+                                 f"by {err} ({name})")
+        out[name] = err
+    log(f"device augment on the card == on the CPU with the same draws (flipped "
+        f"{int(d['td'].sum())} top-down and {int(d['lr'].sum())} left-right of "
+        f"{x.shape[0]}): flips and gt exactly, colour max |diff| {out['both']:.3g} "
+        f"(tolerance {AUGMENT_ATOL})")
+    return dict(flip_err=out["flips"], colour_max_abs_err=out["both"])
+
+
+def chunk_stream(n, seed):
+    """A CPU dataset with the chunked run's rows and budgets, one byte an
+    image: the index stream, pins and rotations the card's run must show."""
+    import numpy as np
+
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    return DeviceDataset(np.zeros((n, 1, 1, 1), np.uint8),
+                         np.zeros((n, 1, 5), np.float32), TRAIN_BATCH, seed=seed,
+                         max_bytes=CHUNK_BUDGET_ROWS, chunk_bytes=CHUNK_ROWS,
+                         rotate_every=CHUNK_ROTATE, device="cpu")
+
+
+def phase_resident_chunked(model, images, gt, lr=0.01):
+    """``CHUNK_EPOCHS`` scanned epochs on chunked residency: the pins,
+    rotations and index streams equal a CPU dataset's on the same calls,
+    each pinned chunk holds its slot's rows, and at the end every chunk on
+    the card holds its slot's rows, rows of the initial pool among them;
+    finite losses; each pin, upload and join of a refresh logged."""
+    import math
+
+    import numpy as np
+
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    per = int(np.prod(images.shape[1:]))
+    t = time.perf_counter()
+    ds = DeviceDataset(images, gt, TRAIN_BATCH, seed=1, max_bytes=CHUNK_BUDGET_ROWS * per,
+                       chunk_bytes=CHUNK_ROWS * per, rotate_every=CHUNK_ROTATE)
+    shadow = chunk_stream(images.shape[0], 1)
+    resident = set(np.concatenate(ds._slot_rows).tolist())
+    model.train_iterator, model.train_initializer = ds, ds.reset
+    model.num_train = RESIDENT_STEPS * TRAIN_BATCH
+    drawn = []
+    scan_indices = ds.scan_indices
+    ds.scan_indices = lambda k: drawn.append(scan_indices(k)) or drawn[-1]
+    writer = StepLog()
+    pool_rows = set()
+    try:
+        for epoch in range(CHUNK_EPOCHS):
+            model.train_one_epoch(lr, writer)
+            shadow.reset()
+            want = shadow.scan_indices(RESIDENT_STEPS).numpy()
+            if len(drawn) != epoch + 1 or not np.array_equal(drawn[-1].cpu().numpy(), want):
+                raise AssertionError(f"epoch {epoch}'s indices differ from the stream's")
+            if not np.array_equal(stamped_rows(ds.images), ds.slot_rows):
+                raise AssertionError("the pinned chunk on the card does not hold its rows")
+    finally:
+        ds.close()
+    wall = time.perf_counter() - t
+    for slot, (chunk, _) in enumerate(ds._dev_chunks):  # refreshes settled by close
+        rows = stamped_rows(chunk)
+        if not np.array_equal(rows, ds._slot_rows[slot]):
+            raise AssertionError(f"chunk {slot} on the card does not hold its rows")
+        pool_rows.update(set(rows.tolist()) - resident)
+    shadow.close()
+    got = [(r["pin"], r["slot"], r["refresh"]) for r in ds.pin_log]
+    if got != [(r["pin"], r["slot"], r["refresh"]) for r in shadow.pin_log]:
+        raise AssertionError(f"the card's pins {got} != the stream's "
+                             f"{[(r['pin'], r['slot'], r['refresh']) for r in shadow.pin_log]}")
+    if ds._pool != shadow._pool or any(not np.array_equal(a, b) for a, b in
+                                      zip(ds._slot_rows, shadow._slot_rows)):
+        raise AssertionError("the chunked rows on the card differ from the stream's")
+    losses = [float(x) for x in writer.losses]
+    if len(losses) != CHUNK_EPOCHS * RESIDENT_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"chunked residency's losses: {losses}")
+    rotations = sum(r["refresh"] is not None for r in ds.pin_log)
+    if not rotations or not pool_rows:
+        raise AssertionError(f"no rotation brought pool rows to the card: {ds.pin_log}")
+    for r in ds.pin_log:
+        log(f"  pin {r['pin']}: slot {r['slot']}, rotation {r['refresh']}")
+    for u in ds.uploads:
+        log(f"  upload of slot {u['slot']}: {u['seconds']:.3f} s "
+            f"({'background: pinned memory, its own stream' if u['background'] else 'in line'})")
+    for j in ds.joins:
+        log(f"  background refresh of slot {j['slot']} joined at a {j['at']}: "
+            f"{'finished before' if j['finished'] else 'still running'}, waited "
+            f"{j['wait_s']:.4f} s")
+    log(f"chunked residency: {ds.k_chunks} x {ds.chunk_rows} rows resident of "
+        f"{images.shape[0]}, {CHUNK_EPOCHS} scanned epochs of {RESIDENT_STEPS} steps in "
+        f"{wall:.2f} s; pins and rotations equal the CPU stream's; {rotations} rotations "
+        f"brought {len(pool_rows)} pool rows to the card; losses finite")
+    return dict(pins=ds.pin_log, joins=ds.joins, uploads=ds.uploads, rotations=rotations,
+                pool_rows_on_card=len(pool_rows), losses=losses, wall_s=wall)
+
+
+def phase_resident(dev, phase4, phase16):
+    """17. SSD300 trains from a dataset resident on the card, with tpudet's
+    device augmentation, on the scanned and the per-step epoch; the augment
+    on the card against the CPU; chunked residency with rotation."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    images, gt = resident_arrays()
+    log(f"resident set: {images.shape[0]} images {images.shape[1:]} uint8 "
+        f"({images.nbytes / 1e9:.3f} GB), gt {gt.shape}, made in "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    ds = DeviceDataset(images, gt, TRAIN_BATCH, seed=0)
+    if ds.device.type != dev.type:
+        raise AssertionError("a DeviceDataset must default to the card")
+    t = time.perf_counter()
+    resident = ds.images
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    if not np.array_equal(stamped_rows(resident[::997]), np.arange(0, images.shape[0], 997)):
+        raise AssertionError("the resident set on the card does not hold its rows in order")
+    log(f"uploaded once in {upload_s:.3f} s ({images.nbytes / upload_s / 1e9:.2f} GB/s, "
+        f"pageable host memory)")
+    model = resident_model(dev, ds)
+    model.num_train = RESIDENT_WARMUP * TRAIN_BATCH
+    model.train_one_epoch(0.01)
+    runs = {"scan": [], "per_step": []}
+    for path in ("scan", "per_step", "per_step", "scan"):  # in turns
+        model.config["no_scan_epoch"] = path == "per_step"
+        runs[path].append(resident_epoch(model, path.replace("_", "-") + " epoch"))
+    profile = profile_feed_step(model, 0.01)
+    model.config["no_scan_epoch"] = False
+    scan, per_step = ({"images_per_s": statistics.mean(r["images_per_s"] for r in rs),
+                       "step_ms": statistics.mean(r["step_ms"] for r in rs),
+                       "counts": {k: sum(r["counts"][k] for r in rs) for k in rs[0]["counts"]},
+                       "epochs": rs} for rs in (runs["scan"], runs["per_step"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    idx = torch.from_numpy((np.arange(TRAIN_BATCH) * 97 % images.shape[0])
+                           .astype(np.int32)).to(dev)
+    batch = ds.gather(idx)
+    x, g = model._to_device(*batch)
+    gather_ms = device_ms(lambda: ds.gather(idx))
+    nchw_ms = device_ms(lambda: model._to_device(*batch))
+    augment_ms = device_ms(lambda: model._device_augment(x, g, 3))
+    augment = augment_card_vs_cpu(model, x, g, 3)
+    log(f"per step on the card: gather {fmt_ms(gather_ms)} ms (index_select of "
+        f"[{TRAIN_BATCH}, 300, 300, 3] uint8 and the gt), to float32 NCHW "
+        f"{fmt_ms(nchw_ms)} ms, device augment {fmt_ms(augment_ms)} ms (profiler device "
+        f"time)")
+    del batch, x, g, resident
+    model.train_iterator = model.train_initializer = None
+    del ds
+    torch.cuda.empty_cache()
+    chunked = phase_resident_chunked(model, images, gt)
+    del model
+    torch.cuda.empty_cache()
+
+    p4, p16 = phase4["bf16"], phase16["train"]
+    p4_share = (p4["profile"]["busy_ms"] / p4["profile"]["wall_ms"]
+                if p4["profile"].get("busy_ms") else None)
+    log(f"bf16 SSD300 at batch {TRAIN_BATCH}: {scan['images_per_s']:.1f} images/s on the "
+        f"resident set's scanned epochs and {per_step['images_per_s']:.1f} on its per-step "
+        f"epochs (means of two in turns), vs "
+        f"{p4['images_per_s']:.1f} on phase 4's fixed arrays and "
+        f"{p16['images_per_s']:.1f} on phase 16's host feed; device busy over a profiled "
+        f"step {fmt_share(profile['busy_share'])} vs {fmt_share(p4_share)} and "
+        f"{fmt_share(p16['profile']['busy_share'])}; peak {peak:.2f} GiB vs "
+        f"{p4['peak_gib']:.2f} and {p16['peak_gib']:.2f} GiB; phase 17 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(upload_s=upload_s, gigabytes=images.nbytes / 1e9, scan=scan,
+                per_step=per_step, profile=profile, peak_gib=peak, gather_ms=gather_ms,
+                to_nchw_ms=nchw_ms, augment_ms=augment_ms, augment_vs_cpu=augment,
+                chunked=chunked,
+                phase4={"images_per_s": p4["images_per_s"], "busy_share": p4_share,
+                        "peak_gib": p4["peak_gib"]},
+                phase16={"images_per_s": p16["images_per_s"],
+                         "busy_share": p16["profile"]["busy_share"],
+                         "peak_gib": p16["peak_gib"]})
+
+
 def fmt_share(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -3006,6 +3323,11 @@ def main() -> int:
     feed = phase_feed(dev, train)
     f_train, f_eval = feed["train"], feed["eval"]
     log(json.dumps({"feed": feed}))
+    # 17. the resident feed: SSD300 from a dataset on the card, augmented there
+    resident = phase_resident(dev, train, feed)
+    log(json.dumps({"resident": resident}))
+    res_counts = [resident[k]["counts"] for k in ("scan", "per_step")]
+    res_steps = 2 * RESIDENT_STEPS  # each path's steps: two epochs
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -3083,7 +3405,8 @@ def main() -> int:
                       + ssd512["records"][0]["launches"]
                       + sum(f["records"][0]["launches"] for f in yolo.values())
                       + fcos_nms["launches"] + lh_nms["launches"]
-                      + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]),
+                      + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]
+                      + sum(c["nms_rows"] for c in res_counts)),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -3145,12 +3468,18 @@ def main() -> int:
                   "eval_full_width": f_eval["full_width"] and {
                       k: f_eval["full_width"][k] for k in (
                           "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks",
-                          "shape")}}},
+                          "shape")}},
+         "resident": {"launches": sum(c["nms_rows"] for c in res_counts),
+                      "launches_per_step": [c["nms_rows"] / res_steps
+                                            for c in res_counts],
+                      "launches_by_path": {k: sum(c[k] for c in res_counts)
+                                           for k in ("sorted_scan", "per_pick")}}},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
                       + sum(f["records"][1]["launches"] for f in refine.values())
-                      + ssd512["records"][1]["launches"] + f_train["counts"]["assign"]),
+                      + ssd512["records"][1]["launches"] + f_train["counts"]["assign"]
+                      + sum(c["assign"] for c in res_counts)),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -3169,7 +3498,10 @@ def main() -> int:
          "fcos": fcos_assign, "centernet": cn_records, "lhrcnn": lh_assign,
          "feed": {"launches": f_train["counts"]["assign"] + f_eval["counts"]["assign"],
                   "launches_per_step": f_train["counts"]["assign"] / FEED_STEPS,
-                  "launches_per_image": f_eval["counts"]["assign"] / f_eval["images"]}},
+                  "launches_per_image": f_eval["counts"]["assign"] / f_eval["images"]},
+         "resident": {"launches": sum(c["assign"] for c in res_counts),
+                      "launches_per_step": [c["assign"] / res_steps
+                                            for c in res_counts]}},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

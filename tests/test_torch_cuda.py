@@ -563,3 +563,98 @@ def test_ssd300_evaluates_the_mini_voc_set_on_the_card(cuda_device):
     mAP, _ = evaluate.evaluate_model(model, records)
     assert nms_kernel.launches_by_path["sorted_scan"] - before["sorted_scan"] == 8
     assert np.isfinite(mAP) and 0.0 <= mAP <= 1.0
+
+
+# ------------------------------------------------------------ the resident feed
+AUGMENT = {"flip_prob": [0.5, 0.5], "color_jitter_prob": 0.5}
+
+
+def _resident_set(n, hw=64, pad=6, seed=3):
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, hw, hw, 3)).astype(np.uint8)
+    images[:, 0, 0, 0] = np.arange(n)  # each row's id in its first pixel
+    gt = rand_gt(rng, n, pad, 5, size=float(hw), n_valid_min=1)
+    return images, gt
+
+
+@pytest.mark.cuda
+def test_device_augment_on_the_card_equals_the_cpu(cuda_device):
+    """The same draws: flips and gt exactly, colour within 2e-3 of the CPU's
+    (the CPU tests' tolerance against tpudet)."""
+    from tpudet_torch.data import device_augment, prng
+
+    images, gt = _resident_set(8)
+    x = torch.from_numpy(images).permute(0, 3, 1, 2).float()
+    g = torch.from_numpy(gt)
+    for step in range(3):
+        d = device_augment.draws(prng.fold_in(prng.key(7), step), 8, AUGMENT)
+        for cfg, atol in (({"flip_prob": AUGMENT["flip_prob"]}, 0.0), (AUGMENT, 2e-3)):
+            card = device_augment.apply_draws(x.to(cuda_device), g.to(cuda_device),
+                                              device_augment.to_device(d, cuda_device), cfg)
+            cpu = device_augment.apply_draws(x, g, device_augment.to_device(d, "cpu"), cfg)
+            assert card[0].is_cuda and card[1].is_cuda
+            torch.testing.assert_close(card[1].cpu(), cpu[1], rtol=0, atol=0)
+            torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_device_dataset_on_the_card_yields_card_batches(cuda_device):
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    images, gt = _resident_set(12)
+    ds = DeviceDataset(images, gt, batch=4, seed=7)  # device None: the card
+    twin = DeviceDataset(images, gt, batch=4, seed=7, device="cpu")
+    assert ds.device.type == "cuda" and ds.images.is_cuda
+    for _ in range(5):
+        bi, bg = next(ds)
+        ti, tg = next(twin)
+        assert bi.is_cuda and bg.is_cuda and bi.dtype == torch.uint8
+        torch.testing.assert_close(bi.cpu(), ti, rtol=0, atol=0)
+        torch.testing.assert_close(bg.cpu(), tg, rtol=0, atol=0)
+    idx = ds.scan_indices(3)
+    assert idx.is_cuda and torch.equal(idx.cpu(), twin.scan_indices(3))
+
+
+@pytest.mark.cuda
+def test_chunked_refresh_lands_on_the_card(cuda_device):
+    """24 rows, chunks of 8, 16 resident, a rotation every 2nd pin: each
+    pinned chunk on the card holds its slot's rows, and after the
+    background refreshes rows of the pool are among them."""
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    images, gt = _resident_set(24, hw=16)
+    per = 16 * 16 * 3
+    ds = DeviceDataset(images, gt, batch=4, seed=0, max_bytes=16 * per,
+                       chunk_bytes=8 * per, rotate_every=2)
+    resident = set(np.concatenate(ds._slot_rows).tolist())
+    seen = set()
+    for _ in range(8):
+        ds.scan_indices(2)
+        rows = ds.images[:, 0, 0, 0].cpu().numpy()
+        assert ds.images.is_cuda
+        np.testing.assert_array_equal(rows, ds.slot_rows)
+        torch.testing.assert_close(ds.gt.cpu(), torch.from_numpy(gt[ds.slot_rows]))
+        seen.update(rows.tolist())
+    ds.close()
+    assert any(u["background"] for u in ds.uploads) and seen - resident
+
+
+@pytest.mark.cuda
+def test_ssd300_step_from_a_resident_batch(cuda_device):
+    """One bf16 SSD300 step (300x300, batch 2) on a resident batch with the
+    device augment: one assignment launch, one mining pool, a finite loss."""
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    images, gt = _resident_set(4, hw=300, pad=60)
+    ds = DeviceDataset(images, gt, batch=2, seed=1)
+    model = SSD300({"mode": "train", "data_format": "channels_last", "num_classes": 20,
+                    "batch_size": 2, "weight_decay": 1e-4, "nms_score_threshold": 0.5,
+                    "nms_max_boxes": 20, "nms_iou_threshold": 0.5,
+                    "compute_dtype": "bfloat16", "device_augment": AUGMENT, "seed": 0},
+                   {"num_train": 2, "train_generator": ds})
+    counts = (assign_kernel.launches, dict(nms_kernel.launches_by_path))
+    loss = model.train_step(*model._to_device(*next(ds)), 0.01)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss)) and model.global_step == 1
+    assert assign_kernel.launches == counts[0] + 1
+    assert nms_kernel.launches_by_path["sorted_scan"] == counts[1]["sorted_scan"] + 1

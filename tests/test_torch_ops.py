@@ -76,7 +76,7 @@ def _sources(group):
         names = {str(p.relative_to(REPO / "tpudet_torch")) for p in paths}
         assert names >= {f"data/{m}.py" for m in (
             "classes", "example_proto", "tfrecord", "voc", "augment", "pipeline",
-            "imagenet")} | {f"runtime/{m}.py" for m in ("evaluate", "metrics", "summary")}
+            "imagenet", "prng", "device_augment", "device_dataset")} | {f"runtime/{m}.py" for m in ("evaluate", "metrics", "summary")}
         return paths
     script = REPO / "chip_smoke.py"
     helpers = sorted(REPO / "tests" / f"{n}.py" for n in set(_imports(script))

@@ -433,16 +433,27 @@ def test_to_device_takes_uint8_and_channels_first():
 @pytest.mark.parametrize("key", sorted(t_base.UNPORTED_KEYS))
 def test_unported_trainer_keys_raise(key):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        SSD76(_config(**{key: {"flip_prob": 0.5} if "augment" in key else 2}),
-              device="cpu")
+        SSD76(_config(**{key: 2}), device="cpu")
 
 
 def test_device_resident_feed_raises():
+    """A tensor batch must sit on the model's device with ``batch_size``
+    rows: anything else raises ``ValueError`` and is never moved. A right
+    one (NHWC, any dtype) becomes float32 NCHW there."""
     images, gt = _batch(4)
-    feed = _fixed_feed((torch.from_numpy(images), torch.from_numpy(gt)))
+    images = np.round(images).astype(np.uint8)
+    feed = _fixed_feed((torch.from_numpy(images[:1]), torch.from_numpy(gt[:1])))
     pm = SSD76(_config(), {"num_train": 2, "train_generator": feed}, device="cpu")
-    with pytest.raises(NotImplementedError, match="device-resident feed"):
+    with pytest.raises(ValueError, match="1 rows"):
         pm.train_one_epoch(0.01)
+    with pytest.raises(ValueError, match="tensor on cpu"):
+        pm._to_device(torch.from_numpy(images), gt)
+    with pytest.raises(ValueError, match="tensor on cpu"):
+        pm._to_device(torch.from_numpy(images).to("meta"), torch.from_numpy(gt))
+    x, g = pm._to_device(torch.from_numpy(images), torch.from_numpy(gt))
+    assert x.dtype == torch.float32 and x.shape == (2, 3, 76, 76) and x.is_contiguous()
+    np.testing.assert_array_equal(x.permute(0, 2, 3, 1).numpy(), images)
+    assert pm.global_step == 0
 
 
 def test_training_without_device_needs_a_card(monkeypatch):

@@ -19,3 +19,15 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def same(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` without an index is
+    the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None
+                                                          else b.index)

@@ -6,7 +6,13 @@ Config keys as in tpudet: mode, data_format, num_classes, weight_decay,
 keep_prob (accepted, unused), batch_size, nms_score_threshold, nms_max_boxes,
 nms_iou_threshold, pretraining_weight, compute_dtype ("float32" or "bfloat16"),
 input_dtype ("uint8" sends images to the device as bytes), loss_sync_every,
-seed. The keys of tpudet's trainer that the port does not have yet raise
+seed, and the device-resident feed's: device_augment (flips and colour
+jitter inside the step, keyed as tpudet keys them), no_scan_epoch and
+device_augment_split. tpudet's split moves its augmentation into a dispatch
+of its own and so turns its scanned epoch off; eager PyTorch has no such
+dispatch, so here the key turns the scanned epoch off as no_scan_epoch does
+and the augmentation stays in the step (the same numbers). The keys of
+tpudet's trainer that the port does not have yet raise
 ``NotImplementedError`` (:data:`UNPORTED_KEYS`).
 
 Weights are initialised from a ``torch.Generator`` seeded with the config's
@@ -23,18 +29,14 @@ import numpy as np
 import torch
 
 from tpudet_torch import device as device_lib
+from tpudet_torch.data import device_augment, prng
+from tpudet_torch.data.device_dataset import DeviceDataset
 from tpudet_torch.runtime import checkpoint as ckpt
 from tpudet_torch.runtime import config as config_lib
 from tpudet_torch.runtime import optim
 from tpudet_torch.runtime import transfer
 
-_FEED = "ROADMAP.md queue 1, the device-resident feed"
-UNPORTED_KEYS = {
-    "device_augment": _FEED,
-    "device_augment_split": _FEED,
-    "no_scan_epoch": _FEED,
-    "dcn_size": "ROADMAP.md queue 1, data parallelism",
-}
+UNPORTED_KEYS = {"dcn_size": "ROADMAP.md queue 1, data parallelism"}
 
 
 def data_shape_hw(config: Dict[str, Any]):
@@ -62,7 +64,12 @@ class DetectorBase:
     ``data_provider`` is tpudet's: ``num_train`` and ``train_generator``, either
     an ``(initializer, iterator)`` pair or an iterator with an optional
     ``reset``; it yields numpy ``(images [B, H, W, 3] or [B, 3, H, W],
-    gt [B, G, 5])`` batches."""
+    gt [B, G, 5])`` batches, or tensors already on the model's device
+    (``images [B, H, W, 3]`` whatever the data format, as a
+    :class:`~tpudet_torch.data.device_dataset.DeviceDataset` yields them)."""
+
+    # the config keys that turn the scanned epoch off
+    NO_SCAN_KEYS = ("no_scan_epoch", "device_augment_split")
 
     def __init__(self, config: Dict[str, Any], data_provider: Optional[Dict] = None,
                  device: str | torch.device | None = None):
@@ -98,6 +105,7 @@ class DetectorBase:
                 self.train_iterator = gen
         self.global_step = 0
         self.generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
+        self._augment_key = prng.key(int(config.get("seed", 0)) ^ 0x5EED)
 
         self._build()
         self._load_pretraining()
@@ -162,9 +170,7 @@ class DetectorBase:
         images on ``self.device``, sent as ``dtype`` (default ``input_dtype``).
         The layout change and the cast to float32 happen on the device."""
         if not isinstance(images, np.ndarray):
-            raise NotImplementedError(
-                f"the feed must yield numpy batches; device-resident feeds are not "
-                f"ported yet ({_FEED})")
+            raise ValueError(f"a host batch must be numpy arrays, got {type(images)}")
         x = torch.from_numpy(np.ascontiguousarray(images, dtype or self.input_dtype))
         x = x.to(self.device)
         if self.data_format == "channels_last":
@@ -173,18 +179,46 @@ class DetectorBase:
 
     def _to_device(self, images, gt):
         """numpy ``images`` and ``gt [B, G, 5]`` -> float32 NCHW images and
-        float32 gt on ``self.device``."""
+        float32 gt on ``self.device``. Tensors (a device-resident feed's
+        batch) must already be there: NHWC images of any dtype become float32
+        NCHW on the device, with no host copy."""
+        if isinstance(images, torch.Tensor) or isinstance(gt, torch.Tensor):
+            return self._resident_batch(images, gt)
         if not isinstance(gt, np.ndarray):
-            raise NotImplementedError(
-                f"the feed must yield numpy batches; device-resident feeds are not "
-                f"ported yet ({_FEED})")
+            raise ValueError(f"a host batch must be numpy arrays, got {type(gt)}")
         gt = torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(self.device)
         return self._images_to_device(images), gt
 
+    def _resident_batch(self, images, gt):
+        for name, t in (("images", images), ("gt", gt)):
+            if not isinstance(t, torch.Tensor) or not device_lib.same(t.device,
+                                                                      self.device):
+                where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+                raise ValueError(f"a device batch's {name} must be a tensor on "
+                                 f"{self.device}, got {where}; it is not moved")
+        if self.mode == "train" and images.shape[0] != self.batch_size:
+            raise ValueError(f"the device batch has {images.shape[0]} rows; the model's "
+                             f"batch_size is {self.batch_size}")
+        x = images.permute(0, 3, 1, 2).to(torch.float32,
+                                          memory_format=torch.contiguous_format)
+        return x, gt.to(torch.float32)
+
+    def _device_augment(self, images, gt, step: int):
+        """tpudet's device augmentation (config key ``device_augment``) of
+        float32 NCHW images and their gt, keyed by
+        ``fold_in(key(seed ^ 0x5EED), step)``; the identity without the key."""
+        cfg = self.config.get("device_augment")
+        if not cfg:
+            return images, gt
+        return device_augment.apply(prng.fold_in(self._augment_key, step), images, gt, cfg)
+
     def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
-        """One step on a device batch: forward in train mode (which updates the
-        BN running statistics), the loss plus ``weight_decay * global_l2``,
-        backward, and the optimizer. Returns the loss as a device scalar."""
+        """One step on a device batch: the device augmentation (with
+        ``device_augment``, keyed by ``global_step``), forward in train mode
+        (which updates the BN running statistics), the loss plus
+        ``weight_decay * global_l2``, backward, and the optimizer. Returns the
+        loss as a device scalar."""
+        images, gt = self._device_augment(images, gt, self.global_step)
         self.net.train()
         params = dict(self.net.named_parameters())
         outputs = self.net(self._preprocess(images))
@@ -199,19 +233,30 @@ class DetectorBase:
         """One epoch of ``num_train // batch_size`` steps; an optional ``writer``
         gets each step's loss through ``add_summary``.
 
-        Losses stay on the device behind a window of ``loss_sync_every``
-        (config, default 16) steps: each step prints the loss of the step that
-        many iterations back, so the ``\\r`` progress line lags slightly. The
-        returned epoch mean is exact."""
+        A :class:`DeviceDataset` of ``batch_size`` rows feeds the scanned
+        epoch (tpudet's ``lax.scan`` over one dispatch) when the epoch has more
+        than one step and no key of ``NO_SCAN_KEYS`` is set: the epoch's
+        indices are drawn at once by ``scan_indices`` (a chunked dataset pins
+        its next chunk first), and each step gathers its row. Else each step
+        takes ``next`` of the feed. Either way losses stay on the device
+        behind a window of ``loss_sync_every`` (config, default 16) steps:
+        each step prints the loss of the step that many iterations back, so
+        the ``\\r`` progress line lags slightly. The returned epoch mean is
+        exact."""
         if callable(self.train_initializer):
             self.train_initializer()
         num_iters = self.num_train // self.batch_size
+        ds = self.train_iterator
+        if (isinstance(ds, DeviceDataset) and num_iters > 1 and ds.batch == self.batch_size
+                and not any(self.config.get(k) for k in self.NO_SCAN_KEYS)):
+            batches = (ds.gather(row) for row in ds.scan_indices(num_iters))
+        else:
+            batches = (next(ds) for _ in range(num_iters))
         sync_every = max(1, int(self.config.get("loss_sync_every", 16)))
         losses = []
         shown = float("nan")
-        for i in range(num_iters):
-            images, gt = next(self.train_iterator)
-            loss = self.train_step(*self._to_device(images, gt), lr)
+        for i, batch in enumerate(batches):
+            loss = self.train_step(*self._to_device(*batch), lr)
             losses.append(loss)
             if i >= sync_every or i + 1 == num_iters:
                 shown = float(losses[-1] if i + 1 == num_iters else losses[i - sync_every])

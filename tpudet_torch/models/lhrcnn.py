@@ -86,6 +86,10 @@ class LHRCNNNet(nn.Module):
 
 
 class LHRCNN(DetectorBase):
+    # tpudet's LH-RCNN augments inside its step always and ignores
+    # device_augment_split
+    NO_SCAN_KEYS = ("no_scan_epoch",)
+
     def __init__(self, config, data_provider=None, device=None):
         self.data_shape_hw = data_shape_hw(config)
         self.rpn_first_step = int(config["rpn_first_step"])
@@ -142,9 +146,11 @@ class LHRCNN(DetectorBase):
                               self.num_classes, sample_weight=sample_weight)
 
     def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
-        """One step of the phase ``global_step`` falls in: its loss plus
+        """One step of the phase ``global_step`` falls in: the device
+        augmentation (with ``device_augment``), its loss plus
         ``weight_decay`` times the l2 of its scopes, and Momentum on those
         scopes alone. Returns the loss as a device scalar."""
+        images, gt = self._device_augment(images, gt, self.global_step)
         rpn_phase = self.is_rpn_step(self.global_step)
         scopes = RPN_SCOPES if rpn_phase else RCNN_SCOPES
         params = {k: p for k, p in self.net.named_parameters()
