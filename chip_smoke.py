@@ -143,7 +143,16 @@ Phases, each raising on failure (nothing is caught):
      pin) over 4 scanned epochs of 10 steps: pins, rotations and indices
      equal a CPU dataset's on the same calls, each pinned chunk read back as
      its rows, pool rows on the card after a rotation, each pin's upload and
-     wait logged.
+     wait logged;
+ 18. the user's entry points: ``entry_torch.entry()`` on the card, on its
+     example args and on a seeded image, within 1e-4 of the same net on the
+     CPU; ``bench_torch.main()`` at its protocol (SSD300 bf16, batch 32: 2
+     warm-up and 30 timed steps, then a warm and a timed scanned epoch of 30),
+     its JSON on a line of its own, both kernels launched once a step; the
+     mini VOC set through ``drivers_torch/test_voc_utils.py``, then one epoch
+     of ``drivers_torch/_common.run`` at ``drivers_torch/testSSD300.py``'s
+     config at batch 2: one assignment and one mining pool a step, a finite
+     epoch loss, a ``.pt`` checkpoint.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -3204,6 +3213,170 @@ def phase_resident(dev, phase4, phase16):
                          "peak_gib": p16["peak_gib"]})
 
 
+# ------------------------------------------------------ the user's entry points
+ENTRY_SEED = 18
+BENCH_STEPS = 30  # bench_torch's protocol: 2 warm-up steps, 30 timed steps
+DRIVER_BATCH = 2
+DRIVER_RECORDS = 8  # the mini VOC set: one epoch of 4 steps
+
+
+def kernel_counts() -> dict:
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    return {"nms_rows": nms_kernel.launches, "assign": assign_kernel.launches,
+            **nms_kernel.launches_by_path}
+
+
+def reset_kernel_counts():
+    from tpudet_torch.ops.cuda import assign_kernel
+
+    reset_nms_counts()
+    assign_kernel.launches = 0
+
+
+def entry_vs_cpu(dev):
+    """``entry()`` on the card: an eval-mode net there, run on its example
+    args and on a seeded image, each within 1e-4 of the same net on the CPU
+    (``entry(device="cpu")``: the same seed, so the same weights)."""
+    import numpy as np
+    import torch
+
+    import entry_torch
+
+    fn, (arg,) = entry_torch.entry()
+    if fn.training or next(fn.parameters()).device.type != dev.type or arg.device != \
+            next(fn.parameters()).device or tuple(arg.shape) != (1, 3, 300, 300):
+        raise AssertionError("entry() must give an eval-mode net and a [1, 3, 300, 300] "
+                             "input on the card")
+    cpu_fn, _ = entry_torch.entry(device="cpu")
+    image = torch.from_numpy(np.random.default_rng(ENTRY_SEED).normal(
+        0, 60, (1, 3, 300, 300)).astype(np.float32))
+    worst, shapes = 0.0, None
+    with torch.inference_mode():
+        for x in (arg, image.to(dev)):
+            got, want = fn(x), cpu_fn(x.cpu())
+            shapes = [list(g.shape) for g in got]
+            worst = max([worst] + [float((g.cpu() - w).abs().max())
+                                   / max(float(w.abs().max()), 1e-30)
+                                   for g, w in zip(got, want)])
+    if worst > 1e-4:
+        raise AssertionError(f"entry() on the card vs the CPU: rel err {worst}")
+    log(f"entry(): SSD300's net on {dev}, outputs {shapes}; against the CPU on the "
+        f"example args and a seeded image: max |diff| / max |value| {worst:.2e}")
+    return dict(shapes=shapes, max_rel_err=worst)
+
+
+def bench_on_card():
+    """``bench_torch.main()`` at its protocol (batch 32, 30 timed steps, a
+    scanned epoch of 30 after a warm one); it prints its JSON line. Both
+    kernels launch once a step: 2 + 30 + 2 x 30 launches each."""
+    import bench_torch
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    result = bench_torch.main(batch=TRAIN_BATCH, steps=BENCH_STEPS)
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    steps = 2 + BENCH_STEPS + 2 * max(BENCH_STEPS, 20)
+    if result["scan_epoch_imgs_per_sec"] is None:
+        raise AssertionError("the bench's scanned epoch failed")
+    if counts["nms_rows"] != steps or counts["assign"] != steps:
+        raise AssertionError(f"the bench's {steps} steps launched {counts}")
+    log(f"bench_torch: {result['value']} images/s a step, "
+        f"{result['scan_epoch_imgs_per_sec']} scanned, on {result['device']}; "
+        f"{steps} steps launched the NMS kernel {counts['nms_rows']} times "
+        f"({counts['sorted_scan']} sorted scans) and the assignment kernel "
+        f"{counts['assign']} times; {seconds:.1f} s")
+    return dict(result=result, counts=counts, steps=steps, seconds=seconds)
+
+
+def driver_on_card(dev):
+    """The mini VOC set through ``drivers_torch/test_voc_utils.py`` (run as a
+    user runs it, in a directory holding ``VOC2007/``), then one epoch of
+    ``drivers_torch/_common.run`` with ``drivers_torch/testSSD300.py``'s
+    config at batch 2 without ``vgg_16.ckpt``: one assignment and one mining
+    pool a step, a finite epoch loss, a ``.pt`` checkpoint."""
+    import importlib.util
+    import io
+    import runpy
+    import tempfile
+
+    import numpy as np
+
+    from drivers_torch import _common
+    from tpudet_torch.models import SSD300
+
+    repo = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("_driver_ssd300",
+                                                  repo / "drivers_torch" / "testSSD300.py")
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    build = repo / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp, contextlib.chdir(tmp):
+        tmp = Path(tmp)
+        (tmp / "VOC2007").mkdir()
+        for sub in ("Annotations", "JPEGImages"):
+            (tmp / "VOC2007" / sub).symlink_to(voc_mini() / sub)
+        with contextlib.redirect_stdout(io.StringIO()):
+            runpy.run_path(str(repo / "drivers_torch" / "test_voc_utils.py"),
+                           run_name="__main__")
+        shards = sorted(p.name for p in (tmp / "data").iterdir())
+        config = dict(driver.config, batch_size=DRIVER_BATCH, pretraining_weight=None)
+        reset_kernel_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            model = _common.run(SSD300, config, driver.image_augmentor_config,
+                                [300, 300, 3], data_dir="./data/",
+                                num_train=DRIVER_RECORDS, batch_size=DRIVER_BATCH,
+                                epochs=1, lr=driver.lr, save_path="./ssd/test")
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+        steps = DRIVER_RECORDS // DRIVER_BATCH
+        ckpt = tmp / "ssd" / f"test-{steps}.pt"
+        (line,) = [ln for ln in out.getvalue().splitlines()
+                   if ln.startswith(">> mean loss")]
+        loss = float(line.split()[-1])
+        if model.device.type != dev.type or model.global_step != steps:
+            raise AssertionError(f"the driver trained {model.global_step} steps on "
+                                 f"{model.device}; {steps} on the card expected")
+        if counts["nms_rows"] != steps or counts["assign"] != steps:
+            raise AssertionError(f"the driver's {steps} steps launched {counts}")
+        if not np.isfinite(loss) or not ckpt.is_file():
+            raise AssertionError(f"the driver's epoch: loss {loss}, checkpoint "
+                                 f"{ckpt.is_file()}")
+        size = ckpt.stat().st_size
+    log(f"drivers_torch: test_voc_utils wrote {shards}; _common.run trained SSD300 "
+        f"bf16 at batch {DRIVER_BATCH} for {steps} steps on {model.device} in {seconds:.1f} s "
+        f"(the host feed included), epoch loss {loss:.4f}, launches {counts}, "
+        f"checkpoint {ckpt.name} of {size} bytes")
+    return dict(shards=shards, steps=steps, mean_loss=loss, counts=counts,
+                seconds=seconds, checkpoint_bytes=size)
+
+
+def phase_entry_points(dev):
+    """18. the user's entry points: entry(), the bench and a driver."""
+    import torch
+
+    t0 = time.perf_counter()
+    entry = entry_vs_cpu(dev)
+    bench = bench_on_card()
+    torch.cuda.empty_cache()
+    driver = driver_on_card(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return dict(entry=entry, bench=bench, driver=driver)
+
+
+def entry_point_record(entry_points, key):
+    """A kernel's launches on phase 18's bench and driver runs."""
+    return {name: {"launches": entry_points[name]["counts"][key],
+                   "launches_per_step": (entry_points[name]["counts"][key]
+                                         / entry_points[name]["steps"])}
+            for name in ("bench", "driver")}
+
+
 def fmt_share(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -3328,6 +3501,10 @@ def main() -> int:
     log(json.dumps({"resident": resident}))
     res_counts = [resident[k]["counts"] for k in ("scan", "per_step")]
     res_steps = 2 * RESIDENT_STEPS  # each path's steps: two epochs
+    # 18. the user's entry points: entry(), the bench, a driver's epoch
+    entry_points = phase_entry_points(dev)
+    log(json.dumps({"entry_points": entry_points}))
+    ep_counts = [entry_points[k]["counts"] for k in ("bench", "driver")]
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -3406,7 +3583,8 @@ def main() -> int:
                       + sum(f["records"][0]["launches"] for f in yolo.values())
                       + fcos_nms["launches"] + lh_nms["launches"]
                       + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]
-                      + sum(c["nms_rows"] for c in res_counts)),
+                      + sum(c["nms_rows"] for c in res_counts)
+                      + sum(c["nms_rows"] for c in ep_counts)),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -3473,13 +3651,15 @@ def main() -> int:
                       "launches_per_step": [c["nms_rows"] / res_steps
                                             for c in res_counts],
                       "launches_by_path": {k: sum(c[k] for c in res_counts)
-                                           for k in ("sorted_scan", "per_pick")}}},
+                                           for k in ("sorted_scan", "per_pick")}},
+         "entry_points": entry_point_record(entry_points, "nms_rows")},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
                       + sum(f["records"][1]["launches"] for f in refine.values())
                       + ssd512["records"][1]["launches"] + f_train["counts"]["assign"]
-                      + sum(c["assign"] for c in res_counts)),
+                      + sum(c["assign"] for c in res_counts)
+                      + sum(c["assign"] for c in ep_counts)),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -3501,7 +3681,8 @@ def main() -> int:
                   "launches_per_image": f_eval["counts"]["assign"] / f_eval["images"]},
          "resident": {"launches": sum(c["assign"] for c in res_counts),
                       "launches_per_step": [c["assign"] / res_steps
-                                            for c in res_counts]}},
+                                            for c in res_counts]},
+         "entry_points": entry_point_record(entry_points, "assign")},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

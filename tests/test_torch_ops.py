@@ -70,7 +70,13 @@ def _top_level_imports(path):
 
 def _sources(group):
     """``port``: every file of ``tpudet_torch``. ``chip_smoke``: the script and
-    the helpers of ``tests/`` it imports (it runs where JAX is absent)."""
+    the helpers of ``tests/`` it imports (it runs where JAX is absent).
+    ``entry_points``: the port's drivers, entry, bench and convergence script."""
+    if group == "entry_points":
+        paths = [*sorted((REPO / "drivers_torch").glob("*.py")), REPO / "entry_torch.py",
+                 REPO / "bench_torch.py", REPO / "scripts" / "train_convergence_torch.py"]
+        assert len(paths) == 16 and all(p.is_file() for p in paths)
+        return paths
     if group == "port":
         paths = sorted((REPO / "tpudet_torch").rglob("*.py"))
         names = {str(p.relative_to(REPO / "tpudet_torch")) for p in paths}
@@ -85,7 +91,7 @@ def _sources(group):
     return [script, *helpers]
 
 
-@pytest.mark.parametrize("group", ["port", "chip_smoke"])
+@pytest.mark.parametrize("group", ["port", "chip_smoke", "entry_points"])
 def test_port_sources_never_import_jax_flax_or_tpudet(group):
     """Nor ``lxml`` anywhere (the card's machine has none), nor ``cv2`` or
     ``PIL`` when a module is imported: only inside the function that decodes."""

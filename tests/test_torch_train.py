@@ -32,6 +32,7 @@ from tpudet.models import base as jax_base
 from tpudet.models.ssd import SSD300 as JaxSSD300
 from tpudet.nn import layers as jax_layers
 from tpudet.ops import losses as jax_losses
+from tpudet.runtime import mesh as jax_mesh
 from tpudet.runtime import optim as jax_optim
 from tpudet_torch.heads import ssd as t_ssd
 from tpudet_torch.models import base as t_base
@@ -428,6 +429,55 @@ def test_to_device_takes_uint8_and_channels_first():
     got, got_gt = cf._to_device(np.transpose(images, (0, 3, 1, 2)), gt)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(got_gt, want_gt, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def tpudet_at_batch_4():
+    """tpudet's SSD at 76, batch 4, on a one-device mesh (``conftest.py``
+    gives JAX 8 CPU devices, over which tpudet would pad the batch to 8),
+    and its variables as numpy arrays."""
+    with pytest.MonkeyPatch.context() as mp:
+        real = jax_mesh.data_mesh
+        mp.setattr(jax_mesh, "data_mesh", lambda *a, **k: real(num_devices=1))
+        mp.setenv("TPUDET_SSD_CONF_LAYOUT", "ac")
+        jm = _JaxSSD76(_config(batch_size=4))
+    assert jm.device_batch == 4 and jm._sample_weight() is None
+    return jm, {"params": jax.device_get(jm.params),
+                "batch_stats": jax.device_get(jm.batch_stats)}
+
+
+@pytest.mark.parametrize("rows", [3, 5])
+def test_host_batch_is_fit_to_batch_size_as_tpudet(monkeypatch, tpudet_at_batch_4, rows):
+    """A numpy batch of 3 or 5 rows at ``batch_size`` 4: the device batch's
+    rows equal tpudet's, in order (cycled or cut), and one fp32 step's loss
+    equals tpudet's step's to 1e-4 relative (the whole-step tolerance)."""
+    monkeypatch.setenv("TPUDET_SSD_CONF_LAYOUT", "ac")
+    jm, variables = tpudet_at_batch_4
+    images, gt = _batch(40 + rows, b=rows)
+    j_images, j_gt = map(np.asarray, jm._to_device(images, gt))
+    assert j_images.shape[0] == 4
+
+    pm = SSD76(_config(batch_size=4), device="cpu")
+    transfer.load_flax(pm.net, variables)
+    x, g = pm._to_device(images, gt)
+    np.testing.assert_array_equal(_nhwc(x), j_images)
+    np.testing.assert_array_equal(g.numpy(), j_gt)
+    np.testing.assert_array_equal(_nhwc(x), images[np.arange(4) % rows])
+
+    lr = 0.01
+    opt_state = jm._optimizer.init(variables["params"])
+    *_, w_loss = jm._train_step(variables["params"], variables["batch_stats"], opt_state,
+                                jnp.asarray(j_images), jnp.asarray(j_gt),
+                                jnp.float32(lr), jnp.int32(0))
+    loss = pm.train_step(x, g, lr)
+    np.testing.assert_allclose(float(loss), float(w_loss), rtol=1e-4)
+
+
+def test_test_mode_sends_the_rows_it_gets():
+    images, gt = _batch(4, b=3)
+    pm = SSD76(_config(mode="test"), device="cpu")
+    x, g = pm._to_device(images, gt)
+    assert x.shape[0] == 3 and g.shape[0] == 3
 
 
 @pytest.mark.parametrize("key", sorted(t_base.UNPORTED_KEYS))

@@ -7,6 +7,8 @@ wants the CPU (the tests, for instance) says so with ``device="cpu"``.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -31,3 +33,14 @@ def same(a: torch.device, b: torch.device) -> bool:
     current = torch.cuda.current_device()
     return (current if a.index is None else a.index) == (current if b.index is None
                                                           else b.index)
+
+
+def card_line(device: torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of the card (the line every
+    measurement is kept with); ``"cpu"`` for the CPU."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

@@ -181,13 +181,27 @@ class DetectorBase:
         """numpy ``images`` and ``gt [B, G, 5]`` -> float32 NCHW images and
         float32 gt on ``self.device``. Tensors (a device-resident feed's
         batch) must already be there: NHWC images of any dtype become float32
-        NCHW on the device, with no host copy."""
+        NCHW on the device, with no host copy.
+
+        In train mode a host batch of another row count than ``batch_size``
+        is cycled or cut to it (rows ``arange(batch_size) % n``), as tpudet
+        fits a host batch to its device batch: repeated rows, not zeros, so
+        the BatchNorm statistics stay on the data's distribution."""
         if isinstance(images, torch.Tensor) or isinstance(gt, torch.Tensor):
             return self._resident_batch(images, gt)
-        if not isinstance(gt, np.ndarray):
-            raise ValueError(f"a host batch must be numpy arrays, got {type(gt)}")
+        if not isinstance(images, np.ndarray) or not isinstance(gt, np.ndarray):
+            raise ValueError("a host batch must be numpy arrays, got "
+                             f"{type(images)} and {type(gt)}")
+        images, gt = self._fit_host_batch(images, gt)
         gt = torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(self.device)
         return self._images_to_device(images), gt
+
+    def _fit_host_batch(self, images, gt):
+        """Train mode: a numpy batch cycled or cut to ``batch_size`` rows."""
+        if self.mode == "train" and images.shape[0] != self.batch_size:
+            idx = np.arange(self.batch_size) % images.shape[0]
+            images, gt = images[idx], gt[idx]
+        return images, gt
 
     def _resident_batch(self, images, gt):
         for name, t in (("images", images), ("gt", gt)):

@@ -143,6 +143,7 @@ class RetinaNet(DetectorBase):
     def _to_device(self, images, gt):
         if not self.is_pretraining:
             return super()._to_device(images, gt)
+        images, gt = self._fit_host_batch(images, np.asarray(gt))
         labels = torch.from_numpy(np.ascontiguousarray(gt, np.int64))
         return self._images_to_device(images), labels.to(self.device)
 
