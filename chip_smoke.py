@@ -152,7 +152,25 @@ Phases, each raising on failure (nothing is caught):
      mini VOC set through ``drivers_torch/test_voc_utils.py``, then one epoch
      of ``drivers_torch/_common.run`` at ``drivers_torch/testSSD300.py``'s
      config at batch 2: one assignment and one mining pool a step, a finite
-     epoch loss, a ``.pt`` checkpoint.
+     epoch loss, a ``.pt`` checkpoint;
+ 19. data parallelism (``tpudet_torch/runtime/mesh.py``) at phase 4's config
+     and seeded batch (bf16, batch 32, lr 0.01, cap 384): (a) the step
+     without a process group, then ``mesh.initialize`` with one rank on NCCL
+     and the same model through the group: 2 steps equal bit for bit
+     (losses, parameters, BatchNorm statistics, velocities), then epochs of
+     30 timed steps in turns without and with the group, a profiled step of
+     each, the flat gradient reduction's and one BatchNorm reduction's time;
+     (b) two ranks spawned on this one card over gloo (NCCL refuses two
+     ranks on one device), 16 rows each, 2 steps: the first step's loss
+     within 2e-4 of (a)'s and the parameters after it within 5e-4 (tpudet's
+     own tolerances), the second loss within 1e-2 (a bf16 step's), the
+     ranks' states bitwise equal, each rank's one assignment and one mining
+     pool a step held exactly against the plain versions on its inputs, then
+     batch 31 padded to 32 with the mask; (c) phase 17's set cut to 1000 rows in a
+     ``DeviceDataset`` distributed over two ranks, 4 scanned steps with the
+     device augmentation, then 2 per step: each rank's gathered rows equal
+     those a CPU dataset of the same seed assigns it, finite losses. The kernels are
+     built before the ranks are spawned; a rank that fails fails the run.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -860,15 +878,29 @@ def feed(batch, n_steps, b):
     return {"num_train": b * n_steps, "train_generator": (lambda: None, batches())}
 
 
+def train_config(compute_dtype, batch=TRAIN_BATCH):
+    """drivers/testSSD300.py's training config at ``batch`` (phase 4's)."""
+    return {"mode": "train", "data_format": "channels_last", "num_classes": 20,
+            "batch_size": batch, "weight_decay": 1e-4, "keep_prob": 1.0,
+            "nms_score_threshold": 0.5, "nms_max_boxes": 20,
+            "nms_iou_threshold": 0.5, "pretraining_weight": None,
+            "compute_dtype": compute_dtype, "hard_neg_cap": 384, "seed": 0}
+
+
+def train_batch():
+    """Phase 4's seeded batch: 32 images of uniform noise and VOC-like gt."""
+    import numpy as np
+    from torch_assign_cases import voc_like_gt
+
+    rng = np.random.default_rng(2)
+    images = rng.uniform(0, 255, (TRAIN_BATCH, 300, 300, 3)).astype(np.float32)
+    return images, voc_like_gt(3, b=TRAIN_BATCH)
+
+
 def train_model(dev, compute_dtype, images, gt, n_steps):
     from tpudet_torch.models.ssd import SSD300
 
-    config = {"mode": "train", "data_format": "channels_last", "num_classes": 20,
-              "batch_size": TRAIN_BATCH, "weight_decay": 1e-4, "keep_prob": 1.0,
-              "nms_score_threshold": 0.5, "nms_max_boxes": 20,
-              "nms_iou_threshold": 0.5, "pretraining_weight": None,
-              "compute_dtype": compute_dtype, "hard_neg_cap": 384, "seed": 0}
-    model = SSD300(config, feed((images, gt), n_steps, TRAIN_BATCH))
+    model = SSD300(train_config(compute_dtype), feed((images, gt), n_steps, TRAIN_BATCH))
     if model.device.type != dev.type:
         raise AssertionError("SSD300 must default to the card")
     return model
@@ -1000,11 +1032,8 @@ def profile_step(model, images, gt, lr=0.01):
 def phase_train(dev, n_steps=10, warmup=2):
     import numpy as np
     import torch
-    from torch_assign_cases import voc_like_gt
 
-    rng = np.random.default_rng(2)
-    images = rng.uniform(0, 255, (TRAIN_BATCH, 300, 300, 3)).astype(np.float32)
-    gt = voc_like_gt(3, b=TRAIN_BATCH)
+    images, gt = train_batch()
     log(f"train batch: images {images.shape}, gt {gt.shape} with "
         f"{int((gt[..., 0] >= 0).sum())} objects")
 
@@ -3213,6 +3242,457 @@ def phase_resident(dev, phase4, phase16):
                          "peak_gib": p16["peak_gib"]})
 
 
+# ------------------------------------------------------ data parallelism
+DP_WORLD = 2  # ranks sharing the card in (b) and (c)
+DP_STEPS = 2  # steps of (a) and (b): the first held at tpudet's bounds, the second at bf16's
+DP_TIMED_STEPS = 30
+DP_TIMED_REDUCE = 10  # timed flat reductions
+DP_PADDED_BATCH = 31  # 31 rows over 2 ranks: padded to 32, the last row masked out
+DP_RESIDENT_ROWS = 1000  # phase 17's set cut to 1000 rows
+DP_SCAN_STEPS = 4  # (c)'s scanned epoch, then a per-step epoch of
+DP_PER_STEP_STEPS = 2  # this many steps from the same distributed set
+DP_RESIDENT_SEED = 4
+DP_LOSS_RTOL = 2e-4  # tpudet's own tolerances for its 8-device step against
+DP_PARAM_ATOL = 5e-4  # its 1-device step (tests/test_distributed.py), after one step
+# the second step's loss: the repo's bound for a whole bf16 step
+# (tests/test_torch_train.py). Each rank's weight gradients leave its bf16
+# convolutions rounded to bf16 before the ranks sum them, where one rank rounds
+# the whole batch's sum once, so the ranks' first update differs from one
+# rank's by bf16 rounding, and the second loss with it (0.26% on an H100 at
+# this config; in float32 on the CPU at batch 4, 2e-5)
+DP_BF16_STEP_RTOL = 1e-2
+DP_TIMEOUT_S = 900
+
+
+def tf32_off():
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dp_model(batch, images, gt, n_steps):
+    """SSD300 at the training config (bf16) at ``batch``, fed ``(images, gt)``."""
+    from tpudet_torch.models.ssd import SSD300
+
+    return SSD300(train_config("bfloat16", batch), feed((images, gt), n_steps, batch))
+
+
+def dp_steps(model, n_steps, lr=0.01):
+    """``n_steps`` steps through ``train_one_epoch``: each step's loss."""
+    model.num_train = n_steps * model.batch_size
+    writer = StepLog()
+    model.train_one_epoch(lr, writer)
+    return [float(x) for x in writer.losses]
+
+
+def dp_state(model):
+    """The net's parameters and BatchNorm statistics and the velocities, on
+    the CPU."""
+    return {**{k: v.detach().to("cpu", copy=True) for k, v in model.net.state_dict().items()},
+            **{f"velocity/{k}": v.to("cpu", copy=True) for k, v in model.velocity.items()}}
+
+
+def dp_digest(state) -> str:
+    """A digest of the state's bytes (float32 tensors)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for k in sorted(state):
+        digest.update(state[k].numpy().tobytes())
+    return digest.hexdigest()
+
+
+def host_ms(fn, reps):
+    """Host ms a call of ``fn()`` over ``reps`` calls, ended by a sync."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def reduce_ms(model, reps=DP_TIMED_REDUCE):
+    """The step's reductions alone: the flat one (the gradients, one buffer
+    like the parameters, and the loss), by CUDA events and by the host
+    clock, and the floats it sums; and one BatchNorm's ([2, 512]: Σx and Σx²
+    of its widest layer), by the host clock over 100 calls, with the number
+    of BatchNorms (each reduces once forward and once backward)."""
+    import torch
+
+    from tpudet_torch.nn.layers import BatchNorm
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    like = [torch.zeros_like(p) for p in model.net.parameters()] + [
+        torch.zeros((), device=model.device)]
+    stats = torch.zeros((2, 512), device=model.device)
+    with mesh_lib.over(model.mesh):
+        bn_ms = host_ms(lambda: mesh_lib.all_reduce_sum(stats), 100)
+    return dict(ms=event_ms(lambda: mesh_lib.reduce_flat(model.mesh, like), reps),
+                host_ms=host_ms(lambda: mesh_lib.reduce_flat(model.mesh, like), reps),
+                floats=sum(t.numel() for t in like), batchnorm_host_ms=bn_ms,
+                batchnorms=sum(isinstance(m, BatchNorm) for m in model.net.modules()))
+
+
+def dp_one_rank(dev, images, gt, phase4):
+    """19 (a). The step without a process group, then ``mesh.initialize`` with
+    one rank on NCCL and the same model through the group: ``DP_STEPS``
+    steps equal bit for bit (losses, parameters, BatchNorm statistics,
+    velocities); then epochs of ``DP_TIMED_STEPS`` timed steps in turns
+    without and with the group (without, with, with, without), a profiled
+    step of each, and the flat reduction's time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    plain = dp_model(TRAIN_BATCH, images, gt, DP_STEPS)
+    if plain.mesh.group is not None or plain.mesh.world != 1:
+        raise AssertionError(f"a model without a group must be one rank: {plain.mesh}")
+    plain_losses = [x for _ in range(DP_STEPS) for x in dp_steps(plain, 1)]
+    want = dp_state(plain)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mesh_lib.initialize("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                            rank=0, device=dev)
+        try:
+            model = dp_model(TRAIN_BATCH, images, gt, DP_STEPS)
+            if (model.mesh.group is None or model.mesh.world != 1
+                    or torch.distributed.get_backend() != "nccl"):
+                raise AssertionError(f"the model is not on the one-rank NCCL group: "
+                                     f"{model.mesh}")
+            losses = dp_steps(model, 1)
+            first = dp_state(model)
+            losses += [x for _ in range(DP_STEPS - 1) for x in dp_steps(model, 1)]
+            got = dp_state(model)
+            differ = [k for k in want if not torch.equal(got[k], want[k])]
+            if losses != plain_losses or differ:
+                raise AssertionError(f"one NCCL rank differs from no group: losses "
+                                     f"{losses} vs {plain_losses}, {len(differ)} of "
+                                     f"{len(want)} tensors differ ({differ[:5]})")
+            log(f"19a. one rank on NCCL == no group, bit for bit, over {DP_STEPS} bf16 "
+                f"steps: losses {losses}, all {len(want)} parameters, BatchNorm "
+                f"statistics and velocities")
+            turns = {"no_group": [], "group": []}
+            for name in ("no_group", "group", "group", "no_group"):
+                m = plain if name == "no_group" else model
+                m.num_train = DP_TIMED_STEPS * TRAIN_BATCH
+                run = run_epoch(m, images, gt, warmup=0)
+                if (run["counts"]["assign"] != DP_TIMED_STEPS
+                        or run["counts"]["sorted_scan"] != DP_TIMED_STEPS
+                        or not all(np.isfinite(run["losses"]))):
+                    raise AssertionError(f"19a's timed steps ({name}): {run}")
+                turns[name].append({k: run[k] for k in (
+                    "images_per_s", "step_ms", "counts", "steps")})
+            timed = turns["group"][0]
+            profiles = {name: profile_step(m, images, gt)
+                        for name, m in (("no_group", plain), ("group", model))}
+            red = reduce_ms(model)
+        finally:
+            mesh_lib.shutdown()
+    del model, plain
+    torch.cuda.empty_cache()
+    card = card_line()
+    log(f"19a. epochs of {DP_TIMED_STEPS} bf16 steps at batch {TRAIN_BATCH} in turns "
+        f"(without a group, on one NCCL rank twice, without): "
+        + "; ".join(f"{name} {[round(t['images_per_s'], 1) for t in turns[name]]} images/s "
+                    f"by the host clock, {[round(t['step_ms'], 3) for t in turns[name]]} "
+                    f"ms/step by CUDA events, a profiled step {profiles[name]['wall_ms']:.3f} "
+                    f"ms, busy {profiles[name]['busy_ms']} ms" for name in turns)
+        + f"; phase 4: {phase4['images_per_s']:.1f} images/s, {phase4['step_ms']:.3f} "
+        f"ms/step; the flat reduction of {red['floats']} float32 values: "
+        f"{red['ms']:.4f} ms a step on the card ({red['host_ms']:.4f} ms by the host "
+        f"clock); one BatchNorm's reduction {red['batchnorm_host_ms']:.4f} ms by the host "
+        f"clock, {2 * red['batchnorms']} a step [{card}]")
+    return dict(losses=losses, first=first, state=got, timed=timed, turns=turns,
+                profiles=profiles, reduce=red, card=card,
+                phase4={k: phase4[k] for k in ("images_per_s", "step_ms")})
+
+
+def dp_spy(captured):
+    """Record each call's inputs of the assignment and NMS kernels' wrappers
+    on this rank, through the real wrappers. Returns the undo."""
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    real = (assign_kernel.assign_anchors, nms_kernel.nms_rows)
+
+    def spy(key, fn):
+        def call(*a):
+            captured.append((key, a))
+            return fn(*a)
+        return call
+
+    assign_kernel.assign_anchors = spy("assign", real[0])
+    nms_kernel.nms_rows = spy("nms_rows", real[1])
+
+    def undo():
+        assign_kernel.assign_anchors, nms_kernel.nms_rows = real
+    return undo
+
+
+def dp_kernels_vs_plain(captured):
+    """Each captured call's kernel against its plain version on the same
+    inputs, exactly; the number of calls held."""
+    from tpudet_torch.ops import matching
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+
+    for key, args in captured:
+        if key == "assign":
+            ok = assign_equal(assign_kernel.assign_anchors(*args), matching.assign_plain(*args))
+        else:
+            ok = nms_equal(nms_kernel.nms_rows(*args), nms_kernel.plain_rows(*args))
+        if not ok:
+            raise AssertionError(f"the {key} kernel differs from its plain version on "
+                                 f"this rank's inputs {[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
+    return len(captured)
+
+
+def dp_two_rank_step(rank):
+    """19 (b), one rank: ``DP_STEPS`` bf16 steps of the training config at
+    batch 32 (16 rows here) from the seeded weights, one at a time, the
+    kernels' launches counted and their inputs captured; the state after
+    the first and the last (rank 0); then 3 steps timed on the host clock
+    and the flat reduction alone; then batch 31, padded to 32."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    from tpudet_torch import device as device_lib
+
+    tf32_off()
+    images, gt = train_batch()
+    model = dp_model(TRAIN_BATCH, images, gt, DP_STEPS)
+    if model.mesh.world != DP_WORLD or not device_lib.same(model.device,
+                                                           mesh_lib.local_device()):
+        raise AssertionError(f"rank {rank}: {model.mesh} on {model.device}, not on "
+                             f"{mesh_lib.local_device()}")
+    captured = []
+    undo = dp_spy(captured)
+    try:
+        reset_kernel_counts()
+        losses = dp_steps(model, 1)
+        first = dp_state(model) if rank == 0 else None
+        losses += [x for _ in range(DP_STEPS - 1) for x in dp_steps(model, 1)]
+        counts = kernel_counts()
+    finally:
+        undo()
+    checked = dp_kernels_vs_plain(captured)
+    state = dp_state(model)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dp_steps(model, 3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 3
+    red = reduce_ms(model, reps=3)
+    del model
+    padded = dp_model(DP_PADDED_BATCH, images[:DP_PADDED_BATCH], gt[:DP_PADDED_BATCH], 1)
+    weight = padded._sample_weight()
+    padded_losses = dp_steps(padded, 1)
+    if padded.device_batch != TRAIN_BATCH or not np.isfinite(padded_losses).all():
+        raise AssertionError(f"rank {rank}: batch {DP_PADDED_BATCH} gave device batch "
+                             f"{padded.device_batch}, losses {padded_losses}")
+    return dict(losses=losses, counts=counts, checked=checked, first=first,
+                state=state if rank == 0 else None, digest=dp_digest(state),
+                step_ms=step_ms, reduce=red, padded_losses=padded_losses,
+                padded_digest=dp_digest(dp_state(padded)),
+                padded_weight=weight.cpu().numpy().tolist(), card=card_line())
+
+
+def dp_resident_rank(rank):
+    """19 (c), one rank: phase 17's set cut to ``DP_RESIDENT_ROWS`` rows in a
+    ``DeviceDataset`` distributed over the ranks, SSD300 with the device
+    augmentation, one scanned epoch of ``DP_SCAN_STEPS`` steps, then a
+    per-step epoch of ``DP_PER_STEP_STEPS``; the row ids stamped in each
+    gathered batch, the kernels' launches in each epoch."""
+    import torch
+
+    from tpudet_torch.data.device_dataset import DeviceDataset
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    tf32_off()
+    images, gt = resident_arrays()
+    images, gt = images[:DP_RESIDENT_ROWS], gt[:DP_RESIDENT_ROWS]
+    ds = DeviceDataset(images, gt, TRAIN_BATCH, seed=DP_RESIDENT_SEED)
+    model = resident_model(mesh_lib.local_device(), ds)
+    model.num_train = DP_SCAN_STEPS * TRAIN_BATCH
+    ds.distribute(model.mesh, model.device_batch)
+    gathered = []
+    gather = ds.gather
+
+    def spy(idx):
+        out = gather(idx)
+        gathered.append(stamped_rows(out[0]).tolist())
+        return out
+
+    ds.gather = spy
+    writer = StepLog()
+    stamps = []
+    add = writer.add_summary
+    writer.add_summary = lambda loss, global_step: (stamps.append(time.perf_counter()),
+                                                    add(loss, global_step))
+    reset_kernel_counts()
+    t = time.perf_counter()
+    model.train_one_epoch(0.01, writer)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    # each step ends in the mining pool's host sync, so the gaps between
+    # the steps' writes are their host times; the first step is the
+    # process's first and is left out
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    paths = [model.last_epoch]
+    model.config = dict(model.config, no_scan_epoch=True)
+    model.num_train = DP_PER_STEP_STEPS * TRAIN_BATCH
+    reset_kernel_counts()
+    model.train_one_epoch(0.01, writer)
+    paths.append(model.last_epoch)
+    return dict(rows=gathered, losses=[float(x) for x in writer.losses], paths=paths,
+                counts=[counts, kernel_counts()], n_shard=ds.n_shard,
+                digest=dp_digest(dp_state(model)), step_ms=step_ms,
+                first_ms=(stamps[0] - t) * 1e3)
+
+
+def dp_expected_rows(rank):
+    """The rows a CPU ``DeviceDataset`` of the same size and seed assigns to
+    ``rank`` of ``DP_WORLD`` over ``DP_SCAN_STEPS`` scanned steps, then
+    ``DP_PER_STEP_STEPS`` steps drawn one at a time (each epoch after a
+    ``reset``, as ``train_one_epoch`` does)."""
+    import numpy as np
+
+    from tpudet_torch.data.device_dataset import DeviceDataset
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    n = DP_RESIDENT_ROWS
+    cpu = DeviceDataset(np.zeros((n, 1, 1, 3), np.uint8), np.zeros((n, 1, 5), np.float32),
+                        TRAIN_BATCH, seed=DP_RESIDENT_SEED, device="cpu")
+    cpu.distribute(mesh_lib.Mesh(DP_WORLD, rank), TRAIN_BATCH)
+    block = np.arange(rank * cpu.n_shard, (rank + 1) * cpu.n_shard) % n
+    cpu.reset()
+    idx = [*cpu.scan_indices(DP_SCAN_STEPS).numpy()]
+    cpu.reset()
+    idx += [cpu.next_indices(1)[0] for _ in range(DP_PER_STEP_STEPS)]
+    return block[np.stack(idx)].tolist()
+
+
+def phase_data_parallel(dev, phase4):
+    """19. data parallelism at the training config: (a) one rank on NCCL,
+    bit for bit the step without a group, then timed; (b) two ranks sharing
+    the card on gloo against (a); (c) the distributed resident feed on two
+    ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    images, gt = train_batch()
+    one = dp_one_rank(dev, images, gt, phase4)
+    build = Path(__file__).resolve().parent / "build"
+    devices = [f"cuda:{torch.cuda.current_device()}"] * DP_WORLD
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t = time.perf_counter()
+        two = mesh_lib.launch(dp_two_rank_step, DP_WORLD, tmp, backend="gloo",
+                              devices=devices, timeout=DP_TIMEOUT_S)
+        two_s = time.perf_counter() - t
+        t = time.perf_counter()
+        res = mesh_lib.launch(dp_resident_rank, DP_WORLD, tmp, backend="gloo",
+                              devices=devices, timeout=DP_TIMEOUT_S)
+        res_s = time.perf_counter() - t
+    # (b) against (a)
+    if len({r["digest"] for r in two}) != 1:
+        raise AssertionError("the two ranks' parameters differ")
+    if len({r["padded_digest"] for r in two}) != 1:
+        raise AssertionError("the two ranks' parameters differ after the padded batch")
+    for r in two:
+        c = r["counts"]
+        if (c["assign"], c["nms_rows"], c["sorted_scan"]) != (DP_STEPS,) * 3 or \
+                r["checked"] != 2 * DP_STEPS:
+            raise AssertionError(f"a rank's {DP_STEPS} steps launched {c}, "
+                                 f"{r['checked']} calls held against the plain versions")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(two[0]["losses"], one["losses"])]
+    if loss_rel[0] > DP_LOSS_RTOL or max(loss_rel) > DP_BF16_STEP_RTOL:
+        raise AssertionError(f"two ranks' losses {two[0]['losses']} vs one rank's "
+                             f"{one['losses']}: rel {loss_rel}")
+    params = [k for k in one["state"] if not k.startswith("velocity/")
+              and not k.endswith((".mean", ".var"))]
+
+    def max_abs(a, b, keys):
+        return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+    worst = max_abs(two[0]["first"], one["first"], params)
+    if worst > DP_PARAM_ATOL:
+        raise AssertionError(f"two ranks' parameters after a step are {worst} from one "
+                             f"rank's")
+    worst_last = max_abs(two[0]["state"], one["state"], params)
+    if two[0]["padded_weight"] + two[1]["padded_weight"] != (
+            [1.0] * DP_PADDED_BATCH + [0.0] * (TRAIN_BATCH - DP_PADDED_BATCH)):
+        raise AssertionError(f"the padded batch's mask: {[r['padded_weight'] for r in two]}")
+    stats = [k for k in one["state"] if k.endswith((".mean", ".var"))]
+    stat_worst = max_abs(two[0]["first"], one["first"], stats)
+    log(f"19b. two ranks on cuda:0 over gloo, 16 rows each: losses {two[0]['losses']} "
+        f"vs one rank's {one['losses']} (rel {loss_rel}, bounds {DP_LOSS_RTOL} for the "
+        f"first, {DP_BF16_STEP_RTOL} after a bf16 update); {len(params)} parameters "
+        f"within {worst:.2e} of one rank's after the first step (bound {DP_PARAM_ATOL}), "
+        f"{worst_last:.2e} after step {DP_STEPS}; BatchNorm statistics within "
+        f"{stat_worst:.2e} after the first; ranks bitwise equal; each rank launched "
+        f"{two[0]['counts']} in {DP_STEPS} steps, every call == the plain version on its "
+        f"inputs; batch {DP_PADDED_BATCH} padded to {TRAIN_BATCH}, losses "
+        f"{[r['padded_losses'] for r in two]}, ranks equal; a step "
+        f"{[round(r['step_ms'], 1) for r in two]} ms by the host clock, the flat "
+        f"reduction {[round(r['reduce']['host_ms'], 1) for r in two]} ms of it, a "
+        f"BatchNorm's {[round(r['reduce']['batchnorm_host_ms'], 3) for r in two]} ms; "
+        f"{two_s:.1f} s with the spawns [{two[0]['card']}]")
+    # (c)
+    for r, rank in enumerate(res):
+        want = dp_expected_rows(r)
+        if rank["rows"] != want:
+            raise AssertionError(f"rank {r} gathered rows that a CPU dataset of the same "
+                                 f"seed does not assign it")
+        steps = [DP_SCAN_STEPS, DP_PER_STEP_STEPS]
+        if (rank["paths"] != ["scanned", "per-step"]
+                or not np.isfinite(rank["losses"]).all()
+                or len(rank["losses"]) != sum(steps)
+                or [(c["assign"], c["sorted_scan"]) for c in rank["counts"]]
+                != [(s, s) for s in steps]):
+            raise AssertionError(f"rank {r}'s resident epochs: {rank}")
+    if len({r["digest"] for r in res}) != 1:
+        raise AssertionError("the resident epoch's ranks differ")
+    log(f"19c. the resident set's first {DP_RESIDENT_ROWS} rows distributed over "
+        f"{DP_WORLD} ranks ({res[0]['n_shard']} a rank): {DP_SCAN_STEPS} scanned steps, "
+        f"then {DP_PER_STEP_STEPS} per step, each rank's gathered rows == a CPU "
+        f"dataset's, losses {res[0]['losses']}, ranks "
+        f"equal, launches {[r['counts'] for r in res]}; the first step "
+        f"{[round(r['first_ms'], 1) for r in res]} ms, then "
+        f"{[[round(x, 1) for x in r['step_ms']] for r in res]} ms a step by the host clock; "
+        f"{res_s:.1f} s with the spawns; phase 19 took "
+        f"{time.perf_counter() - t0:.1f} s [{one['card']}]")
+    return dict(one_rank={k: one[k] for k in ("losses", "timed", "turns", "profiles",
+                                              "phase4", "reduce")},
+                two_ranks={"losses": two[0]["losses"], "loss_rel": loss_rel,
+                           "param_max_abs_first": worst,
+                           "param_max_abs_last": worst_last,
+                           "stat_max_abs_first": stat_worst,
+                           "counts": [r["counts"] for r in two],
+                           "step_ms": [r["step_ms"] for r in two],
+                           "reduce": [r["reduce"] for r in two],
+                           "padded_losses": [r["padded_losses"] for r in two],
+                           "seconds": two_s},
+                resident={"losses": [r["losses"] for r in res],
+                          "counts": [r["counts"] for r in res],
+                          "step_ms": [r["step_ms"] for r in res],
+                          "first_ms": [r["first_ms"] for r in res], "seconds": res_s},
+                card=one["card"])
+
+
 # ------------------------------------------------------ the user's entry points
 ENTRY_SEED = 18
 BENCH_STEPS = 30  # bench_torch's protocol: 2 warm-up steps, 30 timed steps
@@ -3377,6 +3857,23 @@ def entry_point_record(entry_points, key):
             for name in ("bench", "driver")}
 
 
+def data_parallel_record(dp, key):
+    """A kernel's launches in phase 19: (a)'s timed steps, and each rank's of
+    (b)'s compared steps and (c)'s scanned epoch."""
+    return {"one_rank_nccl": {"launches": dp["one_rank"]["timed"]["counts"][key],
+                              "launches_per_step": (dp["one_rank"]["timed"]["counts"][key]
+                                                    / DP_TIMED_STEPS)},
+            "two_ranks_gloo": {"launches_per_rank": [c[key] for c in dp["two_ranks"]["counts"]],
+                               "launches_per_step": [c[key] / DP_STEPS
+                                                     for c in dp["two_ranks"]["counts"]]},
+            "resident_two_ranks": {
+                "launches_per_rank": [sum(c[key] for c in rank)
+                                      for rank in dp["resident"]["counts"]],
+                "launches_per_step": [sum(c[key] for c in rank)
+                                      / (DP_SCAN_STEPS + DP_PER_STEP_STEPS)
+                                      for rank in dp["resident"]["counts"]]}}
+
+
 def fmt_share(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -3505,6 +4002,12 @@ def main() -> int:
     entry_points = phase_entry_points(dev)
     log(json.dumps({"entry_points": entry_points}))
     ep_counts = [entry_points[k]["counts"] for k in ("bench", "driver")]
+    # 19. data parallelism: one NCCL rank, two gloo ranks on the card, the
+    # distributed resident feed
+    dp = phase_data_parallel(dev, train["bf16"])
+    log(json.dumps({"data_parallel": dp}))
+    dp_counts = ([dp["one_rank"]["timed"]["counts"]] + dp["two_ranks"]["counts"]
+                 + [c for rank in dp["resident"]["counts"] for c in rank])
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -3584,7 +4087,8 @@ def main() -> int:
                       + fcos_nms["launches"] + lh_nms["launches"]
                       + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]
                       + sum(c["nms_rows"] for c in res_counts)
-                      + sum(c["nms_rows"] for c in ep_counts)),
+                      + sum(c["nms_rows"] for c in ep_counts)
+                      + sum(c["nms_rows"] for c in dp_counts)),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -3652,14 +4156,16 @@ def main() -> int:
                                             for c in res_counts],
                       "launches_by_path": {k: sum(c[k] for c in res_counts)
                                            for k in ("sorted_scan", "per_pick")}},
-         "entry_points": entry_point_record(entry_points, "nms_rows")},
+         "entry_points": entry_point_record(entry_points, "nms_rows"),
+         "data_parallel": data_parallel_record(dp, "nms_rows")},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
                       + sum(f["records"][1]["launches"] for f in refine.values())
                       + ssd512["records"][1]["launches"] + f_train["counts"]["assign"]
                       + sum(c["assign"] for c in res_counts)
-                      + sum(c["assign"] for c in ep_counts)),
+                      + sum(c["assign"] for c in ep_counts)
+                      + sum(c["assign"] for c in dp_counts)),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -3682,7 +4188,8 @@ def main() -> int:
          "resident": {"launches": sum(c["assign"] for c in res_counts),
                       "launches_per_step": [c["assign"] / res_steps
                                             for c in res_counts]},
-         "entry_points": entry_point_record(entry_points, "assign")},
+         "entry_points": entry_point_record(entry_points, "assign"),
+         "data_parallel": data_parallel_record(dp, "assign")},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -658,3 +658,41 @@ def test_ssd300_step_from_a_resident_batch(cuda_device):
     assert bool(torch.isfinite(loss)) and model.global_step == 1
     assert assign_kernel.launches == counts[0] + 1
     assert nms_kernel.launches_by_path["sorted_scan"] == counts[1]["sorted_scan"] + 1
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_step_is_the_step_without_a_group(cuda_device, tmp_path):
+    """At world size 1 every reduction is the identity and weight decay counts
+    once: SSD300 (at 76x76, bf16, batch 4) through a one-rank NCCL group
+    equals the same model without a group, bit for bit, over 2 steps: losses,
+    parameters, BatchNorm statistics and velocities."""
+    from tpudet_torch.runtime import mesh as mesh_lib
+
+    class SSD76(SSD300):
+        input_size = 76
+
+    rng = np.random.default_rng(12)
+    images = rng.uniform(0, 255, (4, 76, 76, 3)).astype(np.float32)
+    gt = rand_gt(rng, 4, 60, 6, size=76.0, n_valid_min=1)
+    config = {"mode": "train", "data_format": "channels_last", "num_classes": 20,
+              "batch_size": 4, "weight_decay": 1e-4, "nms_score_threshold": 0.5,
+              "nms_max_boxes": 20, "nms_iou_threshold": 0.5, "hard_neg_cap": 384,
+              "compute_dtype": "bfloat16", "seed": 5}
+
+    def two_steps():
+        model = SSD76(config, device=cuda_device)
+        losses = [model.train_step(*model._to_device(images, gt), 0.01) for _ in range(2)]
+        state = {**model.net.state_dict(), **{f"v/{k}": v for k, v in model.velocity.items()}}
+        return model, [float(x) for x in losses], {k: v.cpu() for k, v in state.items()}
+
+    plain, want_losses, want = two_steps()
+    assert plain.mesh.group is None
+    mesh_lib.initialize("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                        rank=0, device="cuda:0")
+    try:
+        model, losses, got = two_steps()
+        assert model.mesh.group is not None and model.mesh.world == 1
+    finally:
+        mesh_lib.shutdown()
+    assert losses == want_losses
+    assert [k for k in want if not torch.equal(got[k], want[k])] == []

@@ -43,6 +43,7 @@ from tpudet_torch.models import YOLOv2
 from tpudet_torch.models.lhrcnn import LHRCNN
 from tpudet_torch.models.ssd import SSD300
 from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+from tpudet_torch.runtime import mesh as t_mesh
 from tpudet_torch.runtime import transfer
 from torch_refine_common import numpy_variables, tree_like, tree_rel
 
@@ -247,13 +248,21 @@ def test_device_dataset_without_device_needs_a_card(monkeypatch):
         DeviceDataset(images, gt, batch=4)
 
 
-def test_distribute_is_not_ported():
+def test_distribute_lays_out_rank_blocks():
+    """Rank 1 of 2 holds block 1 of the set (rows 4-7 of 8) and draws batches
+    of its 2 rows from it; ``reset`` restarts its stream (tpudet's against
+    these in ``test_torch_mesh.py``)."""
     images, gt = _images(8, (8, 8), 4)
     ds = DeviceDataset(images, gt, batch=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ds.distribute(None, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ds.make_gather()
+    ds.distribute(t_mesh.Mesh(2, 1), 4)
+    assert ds.distributed and (ds.n_shard, ds.per_dev, ds.batch) == (4, 2, 4)
+    np.testing.assert_array_equal(ds.images.numpy(), images[4:])
+    first = ds.next_indices(2)
+    assert first.shape == (2, 2) and sorted(first.ravel()) == [0, 1, 2, 3]
+    g_images, g_gt = next(ds)
+    np.testing.assert_array_equal(g_gt.numpy(), gt[4:][ds._order[:2]])
+    ds.reset()
+    np.testing.assert_array_equal(ds.next_indices(1)[0], ds._order[:2])
 
 
 # ------------------------------------------------------------------ YOLOv2 epoch

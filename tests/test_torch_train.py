@@ -35,7 +35,6 @@ from tpudet.ops import losses as jax_losses
 from tpudet.runtime import mesh as jax_mesh
 from tpudet.runtime import optim as jax_optim
 from tpudet_torch.heads import ssd as t_ssd
-from tpudet_torch.models import base as t_base
 from tpudet_torch.models.ssd import SSD300, _ssd_feat_shapes
 from tpudet_torch.nn import layers as t_layers
 from tpudet_torch.ops import losses as t_losses
@@ -480,10 +479,19 @@ def test_test_mode_sends_the_rows_it_gets():
     assert x.shape[0] == 3 and g.shape[0] == 3
 
 
-@pytest.mark.parametrize("key", sorted(t_base.UNPORTED_KEYS))
-def test_unported_trainer_keys_raise(key):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        SSD76(_config(**{key: 2}), device="cpu")
+@pytest.mark.parametrize("dcn,error", [
+    (None, None), (1, None), (2, "1 devices do not divide into dcn_size=2 groups")])
+def test_dcn_size_is_accepted_and_checked(dcn, error):
+    """``dcn_size`` is tpudet's key: without a process group the mesh is one
+    rank, which no dcn_size or one of 1 leaves 1-D and any larger one cannot
+    divide (tpudet's error)."""
+    if error is None:
+        pm = SSD76(_config(dcn_size=dcn), device="cpu")
+        assert pm.mesh.axis_names == ("data",) and pm.device_batch == 2
+        assert pm._sample_weight() is None and pm.process_count == 1
+        return
+    with pytest.raises(ValueError, match=error):
+        SSD76(_config(dcn_size=dcn), device="cpu")
 
 
 def test_device_resident_feed_raises():

@@ -125,8 +125,15 @@ def apply_draws(images: torch.Tensor, gt, d: Dict[str, torch.Tensor], cfg):
     return images, gt
 
 
-def apply(key: np.ndarray, images: torch.Tensor, gt, cfg):
+def apply(key: np.ndarray, images: torch.Tensor, gt, cfg, batch=None, start: int = 0):
     """``tpudet.data.device_augment.apply`` on float32 NCHW images: the draws
-    of ``key`` made on the host, moved to the images' device and applied."""
-    return apply_draws(images, gt, to_device(draws(key, images.shape[0], cfg),
-                                             images.device), cfg)
+    of ``key`` made on the host, moved to the images' device and applied.
+
+    Data parallel: the images are rows ``[start, start + n)`` of a batch of
+    ``batch`` rows (default: these rows alone). The draws are made for the
+    whole batch, as tpudet draws them, and these rows take theirs."""
+    n = images.shape[0]
+    d = draws(key, n if batch is None else batch, cfg)
+    if batch is not None:
+        d = {k: v[start:start + n] for k, v in d.items()}
+    return apply_draws(images, gt, to_device(d, images.device), cfg)

@@ -21,8 +21,12 @@ Two residencies:
     pinned host memory on its own CUDA stream, so a dataset larger than the
     budget is covered over time.
 
-``distribute`` and ``make_gather`` (tpudet's sharding over a device mesh)
-are not ported yet: ROADMAP.md queue 1 item 8, data parallelism.
+Data parallel (``distribute``): the set is sharded over the ranks of a
+mesh, each rank holding a fixed block of its node's rows on its own device
+and drawing its batch rows from that block on a stream of its own, seeded
+``(seed, rank)``: tpudet's per-device layout and streams, with a rank for a
+device, so the ranks draw tpudet's batches and gather them with no
+communication.
 """
 
 from __future__ import annotations
@@ -35,9 +39,6 @@ import numpy as np
 import torch
 
 from tpudet_torch import device as device_lib
-
-_MESH = "ROADMAP.md queue 1 item 8, data parallelism"
-
 
 class DeviceDataset:
     """Infinite ``(images, gt)`` iterator over a dataset resident on
@@ -70,7 +71,9 @@ class DeviceDataset:
                  device: str | torch.device | None = None):
         self.device = device_lib.resolve(device)
         n = images.shape[0]
+        self._seed = seed
         self.rng = np.random.default_rng(seed)
+        self.distributed = False
         self._chunked = chunk_bytes is not None
         self._rotate_every = rotate_every
         self.pin_log = []
@@ -298,26 +301,68 @@ class DeviceDataset:
             self._host_images = self._host_gt = None
 
     def distribute(self, mesh, device_batch: int):
-        raise NotImplementedError(f"sharding a DeviceDataset is not ported yet ({_MESH})")
+        """Shard the set over the ranks of ``mesh`` (a
+        :class:`~tpudet_torch.runtime.mesh.Mesh`) and switch to this rank's
+        stream (idempotent; must precede the first batch).
+
+        tpudet's layout with a rank for a device: the node's ``n`` rows
+        (this dataset's) padded to ``arange(ranks_per_node * n_shard) % n``
+        with ``n_shard = max(ceil(n / ranks_per_node), per)``, block ``l``
+        held by the node's ``l``-th rank; the rank's stream is seeded
+        ``(seed, rank)``. ``batch`` becomes ``device_batch``; the batches are
+        this rank's ``per = device_batch // world`` rows."""
+        if self.distributed:
+            return
+        if self._chunked:
+            raise NotImplementedError(
+                "chunked residency is a single-process big-input feed; use the "
+                "plain resident mode (it shards over the mesh) for datasets "
+                "that fit the device")
+        if self._images is not None:
+            raise RuntimeError("distribute() must precede the first batch")
+        if device_batch % mesh.world:
+            raise ValueError(f"device_batch={device_batch} must divide over "
+                             f"{mesh.world} devices")
+        self.per_dev = device_batch // mesh.world
+        local = mesh.ranks_per_node
+        self.n_shard = max(-(-self.n // local), self.per_dev)
+        block = np.arange(mesh.local_rank * self.n_shard,
+                          (mesh.local_rank + 1) * self.n_shard) % self.n
+        self._host_images = self._host_images[block]
+        self._host_gt = self._host_gt[block]
+        self.batch = device_batch
+        self.rng = np.random.default_rng((self._seed, mesh.rank))
+        self._order = np.arange(self.n_shard)
+        self._pos = self.n_shard  # shuffle on the first draw
+        self.distributed = True
 
     def make_gather(self):
-        raise NotImplementedError(f"sharding a DeviceDataset is not ported yet ({_MESH})")
+        """The distributed batch assembly ``fn(images, gt, idx)``: this rank's
+        rows ``idx`` (offsets into its block) of its resident block, with no
+        communication."""
+        if not self.distributed:
+            raise RuntimeError("make_gather() needs distribute() first")
+        return lambda images, gt, idx: (torch.index_select(images, 0, idx),
+                                        torch.index_select(gt, 0, idx))
 
     # ------------------------------------------------------------- index feed
     def next_indices(self, k: int) -> np.ndarray:
         """Advance the shuffle stream by ``k`` batches: ``[k, batch]`` int32
-        row ids (chunked: offsets into the chunk pinned last)."""
+        row ids (chunked: offsets into the chunk pinned last; distributed:
+        ``[k, per]`` offsets into this rank's block, tpudet's ``[:, rank]``)."""
         if self._chunked:
             if self._pin is None:
                 self._advance_pin()
             return self._draw_from_pinned(k)
-        out = np.empty((k, self.batch), np.int32)
+        n, b = ((self.n_shard, self.per_dev) if self.distributed
+                else (self.n, self.batch))
+        out = np.empty((k, b), np.int32)
         for i in range(k):
-            if self._pos + self.batch > self.n:
+            if self._pos + b > n:
                 self.rng.shuffle(self._order)
                 self._pos = 0
-            out[i] = self._order[self._pos:self._pos + self.batch]
-            self._pos += self.batch
+            out[i] = self._order[self._pos:self._pos + b]
+            self._pos += b
         return out
 
     def scan_indices(self, k: int) -> torch.Tensor:
@@ -359,7 +404,7 @@ class DeviceDataset:
             self._cycle_pos = self.k_chunks  # re-deal the chunk cycle
             self._pin = None
             return
-        self._pos = self.n
+        self._pos = self.n_shard if self.distributed else self.n
 
     def close(self):
         """Settle a refresh in flight."""

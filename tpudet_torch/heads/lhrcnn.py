@@ -35,6 +35,7 @@ from tpudet_torch.ops import boxes as box_ops
 from tpudet_torch.ops import losses as loss_ops
 from tpudet_torch.ops import matching, nms, roi
 from tpudet_torch.ops.cuda import nms_kernel
+from tpudet_torch.runtime import mesh as mesh_lib
 
 ANCHOR_SCALES = (32.0, 64.0, 128.0, 256.0, 512.0)
 ANCHOR_RATIOS = (0.5, 1.0, 2.0)
@@ -309,6 +310,8 @@ def rcnn_losses(roi_head_fn, rcnn_feat, sample: RPNSample, img_h: float, img_w: 
     w]``, the RoI head, CE over the positive and negative rows (negatives
     take the background label ``num_classes_total - 1``) and smooth-L1 over
     the positive rows. ``sample_weight [B]`` masks batch-padding images.
+    Under an active mesh the two denominators (valid rows, positive rows) are
+    sums over the ranks, so each rank's loss is its share of the global one.
 
     Each image's 128 + 256 proposals are cropped in one gather, so the head
     sees the rows image by image (tpudet: all positives, then all
@@ -332,9 +335,11 @@ def rcnn_losses(roi_head_fn, rcnn_feat, sample: RPNSample, img_h: float, img_w: 
         w = sample_weight.to(torch.float32)[:, None]
         valid, pv = valid * w, pv * w
     ce = loss_ops.softmax_cross_entropy(pconf, labels)
-    conf_loss = torch.sum(ce * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    # the two batch-wide denominators, summed over the ranks of an active mesh
+    den = mesh_lib.all_reduce_sum(torch.stack([torch.sum(valid), torch.sum(pv)]))
+    conf_loss = torch.sum(ce * valid) / torch.clamp(den[0], min=1.0)
     box_l = torch.sum(loss_ops.smooth_l1(pbbox[:, :n_pos] - sample.pos_truth), -1)
-    box_loss = torch.sum(box_l * pv) / torch.clamp(torch.sum(pv), min=1.0)
+    box_loss = torch.sum(box_l * pv) / torch.clamp(den[1], min=1.0)
     return conf_loss + box_loss
 
 

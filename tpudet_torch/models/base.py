@@ -11,9 +11,18 @@ jitter inside the step, keyed as tpudet keys them), no_scan_epoch and
 device_augment_split. tpudet's split moves its augmentation into a dispatch
 of its own and so turns its scanned epoch off; eager PyTorch has no such
 dispatch, so here the key turns the scanned epoch off as no_scan_epoch does
-and the augmentation stays in the step (the same numbers). The keys of
-tpudet's trainer that the port does not have yet raise
-``NotImplementedError`` (:data:`UNPORTED_KEYS`).
+and the augmentation stays in the step (the same numbers). dcn_size splits
+the data-parallel mesh across nodes, as tpudet's.
+
+Data parallelism is tpudet's global-batch program over the ranks of the
+process group (``runtime/mesh.py``): ``batch_size`` is global, padded to
+``device_batch`` (a multiple of the world size) with repeated rows that
+``_sample_weight`` masks out of the loss; each rank trains on its block of
+the device batch, with BatchNorm statistics and loss denominators summed
+over the ranks, weight decay counted once (on rank 0), and the gradients
+summed over the ranks in one flat buffer after ``torch.autograd.grad``.
+Every rank then holds the same weights and returns the global loss. Without
+a process group the step is the single-device one.
 
 Weights are initialised from a ``torch.Generator`` seeded with the config's
 ``seed`` on the CPU and then moved to the model's device, so a seed gives the
@@ -33,10 +42,9 @@ from tpudet_torch.data import device_augment, prng
 from tpudet_torch.data.device_dataset import DeviceDataset
 from tpudet_torch.runtime import checkpoint as ckpt
 from tpudet_torch.runtime import config as config_lib
+from tpudet_torch.runtime import mesh as mesh_lib
 from tpudet_torch.runtime import optim
 from tpudet_torch.runtime import transfer
-
-UNPORTED_KEYS = {"dcn_size": "ROADMAP.md queue 1, data parallelism"}
 
 
 def data_shape_hw(config: Dict[str, Any]):
@@ -76,10 +84,6 @@ class DetectorBase:
         model_name = type(self).__name__
         config_lib.validate(
             config, model_name if model_name in config_lib._MODEL_REQUIRED else None)
-        for key, item in UNPORTED_KEYS.items():
-            if config.get(key):
-                raise NotImplementedError(
-                    f"config key {key!r} is not ported yet ({item})")
         self.device = device_lib.resolve(device)
         self.config = config
         self.mode = config["mode"]
@@ -114,6 +118,7 @@ class DetectorBase:
         self._optimizer = self._make_optimizer()
         self.opt_state = (self._optimizer.init(dict(self.net.named_parameters()))
                           if self.mode == "train" else None)
+        self._setup_mesh()
 
     @property
     def velocity(self):
@@ -147,9 +152,35 @@ class DetectorBase:
         """NCHW float32 images minus the pixel mean."""
         return images - self._mean
 
+    def _setup_mesh(self):
+        """tpudet's mesh over the ranks of the process group (one rank without
+        one): ``process_count`` is the node count, over which the global
+        ``batch_size`` must divide; ``device_batch`` is ``batch_size`` padded
+        to a multiple of the world size (train mode). The weights must be the
+        same on every rank: a seed gives the same init everywhere, and that is
+        checked here, not trusted."""
+        self.mesh = mesh_lib.data_mesh(dcn_size=self.config.get("dcn_size"))
+        self.process_count = self.mesh.nodes
+        train = self.mode == "train"
+        if train and self.batch_size % self.process_count:
+            raise ValueError(f"global batch_size={self.batch_size} must divide over "
+                             f"{self.process_count} processes")
+        self.device_batch = (mesh_lib.device_batch(self.mesh, self.batch_size) if train
+                             else self.batch_size)
+        weight = mesh_lib.sample_weight(self.mesh, self.batch_size) if train else None
+        self._weight = None if weight is None else torch.from_numpy(
+            weight[mesh_lib.rank_rows(self.mesh, self.device_batch)]).to(self.device)
+        mesh_lib.check_replicated(self.mesh, self._state_tensors(), "the initial weights")
+
+    def _state_tensors(self):
+        """The net's parameters and buffers, and the optimizer's state."""
+        return [*self.net.parameters(), *self.net.buffers(), *_leaves(self.opt_state or {})]
+
     def _sample_weight(self):
-        """The mask of real batch rows: one device never pads the batch."""
-        return None
+        """This rank's rows of tpudet's mask of real rows of the device batch
+        (float32, on the model's device), or None when the batch needs no
+        padding."""
+        return self._weight
 
     def _loss_label(self) -> str:
         """The loss's name on the progress line."""
@@ -183,10 +214,9 @@ class DetectorBase:
         batch) must already be there: NHWC images of any dtype become float32
         NCHW on the device, with no host copy.
 
-        In train mode a host batch of another row count than ``batch_size``
-        is cycled or cut to it (rows ``arange(batch_size) % n``), as tpudet
-        fits a host batch to its device batch: repeated rows, not zeros, so
-        the BatchNorm statistics stay on the data's distribution."""
+        In train mode a host batch is fit to the rank's rows
+        (:meth:`_fit_host_batch`); a device batch holds the rank's rows, or
+        its node's whole device batch, of which the rank keeps its rows."""
         if isinstance(images, torch.Tensor) or isinstance(gt, torch.Tensor):
             return self._resident_batch(images, gt)
         if not isinstance(images, np.ndarray) or not isinstance(gt, np.ndarray):
@@ -197,11 +227,18 @@ class DetectorBase:
         return self._images_to_device(images), gt
 
     def _fit_host_batch(self, images, gt):
-        """Train mode: a numpy batch cycled or cut to ``batch_size`` rows."""
-        if self.mode == "train" and images.shape[0] != self.batch_size:
-            idx = np.arange(self.batch_size) % images.shape[0]
+        """Train mode: the node's numpy batch cycled or cut to the node's
+        device batch (rows ``arange(device_batch // process_count) % n``), as
+        tpudet fits a host batch to its device batch: repeated rows, not
+        zeros, so the BatchNorm statistics stay on the data's distribution;
+        then this rank's rows of it. Each rank reads its node's batch."""
+        if self.mode != "train":
+            return images, gt
+        node_db = self.device_batch // self.process_count
+        if images.shape[0] != node_db:
+            idx = np.arange(node_db) % images.shape[0]
             images, gt = images[idx], gt[idx]
-        return images, gt
+        return mesh_lib.shard_batch(self.mesh, images, gt)
 
     def _resident_batch(self, images, gt):
         for name, t in (("images", images), ("gt", gt)):
@@ -210,9 +247,14 @@ class DetectorBase:
                 where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
                 raise ValueError(f"a device batch's {name} must be a tensor on "
                                  f"{self.device}, got {where}; it is not moved")
-        if self.mode == "train" and images.shape[0] != self.batch_size:
-            raise ValueError(f"the device batch has {images.shape[0]} rows; the model's "
-                             f"batch_size is {self.batch_size}")
+        if self.mode == "train":
+            node_db = self.device_batch // self.process_count
+            per = self.device_batch // self.mesh.world
+            if images.shape[0] == node_db:
+                images, gt = mesh_lib.shard_batch(self.mesh, images, gt)
+            elif images.shape[0] != per:
+                raise ValueError(f"the device batch has {images.shape[0]} rows; the model "
+                                 f"takes its node's {node_db} rows or its rank's {per}")
         x = images.permute(0, 3, 1, 2).to(torch.float32,
                                           memory_format=torch.contiguous_format)
         return x, gt.to(torch.float32)
@@ -220,39 +262,60 @@ class DetectorBase:
     def _device_augment(self, images, gt, step: int):
         """tpudet's device augmentation (config key ``device_augment``) of
         float32 NCHW images and their gt, keyed by
-        ``fold_in(key(seed ^ 0x5EED), step)``; the identity without the key."""
+        ``fold_in(key(seed ^ 0x5EED), step)``; the identity without the key.
+        The draws are made for the whole batch of the ranks' equal blocks and
+        this rank takes those of its block."""
         cfg = self.config.get("device_augment")
         if not cfg:
             return images, gt
-        return device_augment.apply(prng.fold_in(self._augment_key, step), images, gt, cfg)
+        n = images.shape[0]
+        return device_augment.apply(prng.fold_in(self._augment_key, step), images, gt,
+                                    cfg, batch=n * self.mesh.world, start=n * self.mesh.rank)
+
+    def _step_grads(self, loss, params: Dict[str, torch.Tensor], *scalars):
+        """The end of every train step: weight decay joins ``loss`` (this
+        rank's share of the global loss) on rank 0 alone, so it counts once;
+        ``torch.autograd.grad``; then the gradients, the loss and ``scalars``
+        (shares too) summed over the ranks in one flat buffer. Returns the
+        gradients, the global loss and the global scalars."""
+        if self.mesh.rank == 0:
+            loss = loss + self.weight_decay * global_l2(params.values())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out = mesh_lib.reduce_flat(self.mesh, [*grads, loss.detach(), *scalars])
+        n = len(grads)
+        return out[:n], out[n], out[n + 1:]
 
     def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
-        """One step on a device batch: the device augmentation (with
-        ``device_augment``, keyed by ``global_step``), forward in train mode
-        (which updates the BN running statistics), the loss plus
-        ``weight_decay * global_l2``, backward, and the optimizer. Returns the
-        loss as a device scalar."""
+        """One step on a device batch (this rank's rows): the device
+        augmentation (with ``device_augment``, keyed by ``global_step``),
+        forward in train mode (which updates the BN running statistics), the
+        loss plus ``weight_decay * global_l2``, backward, the reduction over
+        the ranks, and the optimizer. Returns the global loss as a device
+        scalar."""
         images, gt = self._device_augment(images, gt, self.global_step)
         self.net.train()
         params = dict(self.net.named_parameters())
-        outputs = self.net(self._preprocess(images))
-        loss = self._loss_from_outputs(outputs, gt, self._sample_weight())
-        loss = loss + self.weight_decay * global_l2(params.values())
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with mesh_lib.over(self.mesh):
+            outputs = self.net(self._preprocess(images))
+            loss = self._loss_from_outputs(outputs, gt, self._sample_weight())
+        grads, loss, _ = self._step_grads(loss, params)
         self._optimizer.update(dict(zip(params, grads)), self.opt_state, params, lr)
         self.global_step += 1
-        return loss.detach()
+        return loss
 
     def train_one_epoch(self, lr, writer=None) -> float:
         """One epoch of ``num_train // batch_size`` steps; an optional ``writer``
         gets each step's loss through ``add_summary``.
 
-        A :class:`DeviceDataset` of ``batch_size`` rows feeds the scanned
+        A :class:`DeviceDataset` of ``device_batch`` rows feeds the scanned
         epoch (tpudet's ``lax.scan`` over one dispatch) when the epoch has more
         than one step and no key of ``NO_SCAN_KEYS`` is set: the epoch's
         indices are drawn at once by ``scan_indices`` (a chunked dataset pins
-        its next chunk first), and each step gathers its row. Else each step
-        takes ``next`` of the feed. Either way losses stay on the device
+        its next chunk first), and each step gathers its row (this rank's
+        block of it; a distributed dataset draws only this rank's). On more
+        than one node the dataset is distributed first, as tpudet does. Else
+        each step takes ``next`` of the feed. ``last_epoch`` says which path
+        ran. Either way losses stay on the device
         behind a window of ``loss_sync_every`` (config, default 16) steps:
         each step prints the loss of the step that many iterations back, so
         the ``\\r`` progress line lags slightly. The returned epoch mean is
@@ -261,11 +324,19 @@ class DetectorBase:
             self.train_initializer()
         num_iters = self.num_train // self.batch_size
         ds = self.train_iterator
-        if (isinstance(ds, DeviceDataset) and num_iters > 1 and ds.batch == self.batch_size
-                and not any(self.config.get(k) for k in self.NO_SCAN_KEYS)):
-            batches = (ds.gather(row) for row in ds.scan_indices(num_iters))
+        want_scan = (isinstance(ds, DeviceDataset) and num_iters > 1
+                     and not any(self.config.get(k) for k in self.NO_SCAN_KEYS))
+        if want_scan and self.process_count > 1 and not ds.distributed:
+            ds.distribute(self.mesh, self.device_batch)
+        if want_scan and ds.batch == self.device_batch:
+            mine = (slice(None) if ds.distributed
+                    else mesh_lib.rank_rows(self.mesh, self.device_batch))
+            batches = (ds.gather(row[mine]) for row in ds.scan_indices(num_iters))
+            self.last_epoch = "scanned"
         else:
             batches = (next(ds) for _ in range(num_iters))
+            self.last_epoch = "per-step"
+        out = sys.stdout if self.mesh.rank == 0 else None
         sync_every = max(1, int(self.config.get("loss_sync_every", 16)))
         losses = []
         shown = float("nan")
@@ -274,11 +345,13 @@ class DetectorBase:
             losses.append(loss)
             if i >= sync_every or i + 1 == num_iters:
                 shown = float(losses[-1] if i + 1 == num_iters else losses[i - sync_every])
-            sys.stdout.write(f"\r>> iters {i}/{num_iters} {self._loss_label()} {shown}")
-            sys.stdout.flush()
+            if out is not None:
+                out.write(f"\r>> iters {i}/{num_iters} {self._loss_label()} {shown}")
+                out.flush()
             if writer is not None:
                 writer.add_summary(loss, global_step=self.global_step)
-        sys.stdout.write("\n")
+        if out is not None:
+            out.write("\n")
         if not losses:
             return float("nan")
         return float(np.mean(torch.stack(losses).cpu().numpy()))
@@ -303,13 +376,16 @@ class DetectorBase:
 
     def save_weight(self, mode: str, path: str):
         """Write ``{path}-{global_step}.pt``: the net's state, the optimizer's
-        (training) and ``global_step``, so a run resumes identically."""
+        (training) and ``global_step``, so a run resumes identically. The
+        state is the same on every rank: rank 0 writes and the others wait."""
         if mode not in ("latest", "best"):
             raise ValueError(f"mode must be 'latest' or 'best', got {mode!r}")
-        state = {"state_dict": self.net.state_dict(), "global_step": self.global_step,
-                 "opt_state": self.opt_state or {}}
-        fname = ckpt.save_state(path, state, self.global_step)
-        print("save", mode, "model in", fname, "successfully")
+        if self.mesh.rank == 0:
+            state = {"state_dict": self.net.state_dict(), "global_step": self.global_step,
+                     "opt_state": self.opt_state or {}}
+            fname = ckpt.save_state(path, state, self.global_step)
+            print("save", mode, "model in", fname, "successfully")
+        mesh_lib.barrier(self.mesh, self.device)
 
     def load_weight(self, path: str):
         """Restore the net, the optimizer's state (training) and
@@ -317,7 +393,8 @@ class DetectorBase:
         tpudet's ``save_weight`` (``.tpudet``: ``params`` and ``batch_stats``
         go through ``transfer.from_flax``, ``opt_state`` through
         ``transfer.opt_state_from_flax``). ``path`` is a file, a ``path-step``
-        prefix or a bare prefix (the newest step)."""
+        prefix or a bare prefix (the newest step). Every rank reads the file,
+        then takes rank 0's values."""
         fname = ckpt.resolve(path)
         blob = ckpt.load_state(fname, map_location=self.device)
         if fname.endswith(ckpt.TPUDET_SUFFIX):
@@ -331,6 +408,7 @@ class DetectorBase:
         if self.opt_state is not None and opt_state:
             _copy_state(self.opt_state, opt_state)
         self.global_step = int(blob.get("global_step", 0))
+        mesh_lib.replicate_tree(self.mesh, self._state_tensors())
         print("load weight", fname, "successfully")
 
     def _load_scopes(self, path: str, scopes, with_stats: bool):
@@ -359,6 +437,15 @@ class DetectorBase:
                 raise KeyError(f"the checkpoint's {scope} does not match the net's: "
                                f"missing {missing}, unexpected {unexpected}")
         return fname
+
+
+def _leaves(tree: Dict[str, Any]):
+    """The tensors of a nested dict, in its order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
 
 
 def _copy_state(dst: Dict[str, Any], src: Dict[str, Any]) -> None:

@@ -27,9 +27,10 @@ import torch
 from torch import nn
 
 from tpudet_torch.heads import lhrcnn as lh
-from tpudet_torch.models.base import DetectorBase, data_shape_hw, global_l2
+from tpudet_torch.models.base import DetectorBase, data_shape_hw
 from tpudet_torch.nn.layers import ConvBN
 from tpudet_torch.ops import losses as loss_ops
+from tpudet_torch.runtime import mesh as mesh_lib
 
 RPN_SCOPES = ("feature_extractor", "rpn")
 RCNN_SCOPES = ("rcnn",)
@@ -148,19 +149,20 @@ class LHRCNN(DetectorBase):
     def train_step(self, images: torch.Tensor, gt: torch.Tensor, lr: float):
         """One step of the phase ``global_step`` falls in: the device
         augmentation (with ``device_augment``), its loss plus
-        ``weight_decay`` times the l2 of its scopes, and Momentum on those
-        scopes alone. Returns the loss as a device scalar."""
+        ``weight_decay`` times the l2 of its scopes, the reduction over the
+        ranks (:meth:`DetectorBase._step_grads`), and Momentum on those
+        scopes alone. Returns the global loss as a device scalar."""
         images, gt = self._device_augment(images, gt, self.global_step)
         rpn_phase = self.is_rpn_step(self.global_step)
         scopes = RPN_SCOPES if rpn_phase else RCNN_SCOPES
         params = {k: p for k, p in self.net.named_parameters()
                   if k.split(".", 1)[0] in scopes}
-        loss = (self.phase_loss(images, gt, rpn_phase)
-                + self.weight_decay * global_l2(params.values()))
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with mesh_lib.over(self.mesh):
+            loss = self.phase_loss(images, gt, rpn_phase)
+        grads, loss, _ = self._step_grads(loss, params)
         self._optimizer.update(dict(zip(params, grads)), self.opt_state, params, lr)
         self.global_step += 1
-        return loss.detach()
+        return loss
 
     def _loss_label(self) -> str:
         # tpudet names the loss by the phase of global_step AFTER the step

@@ -25,11 +25,12 @@ from torch import nn
 
 from tpudet_torch.heads import retina as retina_head
 from tpudet_torch.heads import ssd as ssd_head
-from tpudet_torch.models.base import DetectorBase, data_shape_hw, global_l2
+from tpudet_torch.models.base import DetectorBase, data_shape_hw
 from tpudet_torch.nn.backbones.resnet import PreActResNet
 from tpudet_torch.nn.necks.fpn import RetinaFPN
 from tpudet_torch.ops import losses as loss_ops
 from tpudet_torch.runtime import checkpoint as ckpt
+from tpudet_torch.runtime import mesh as mesh_lib
 from tpudet_torch.runtime import transfer
 
 
@@ -127,7 +128,7 @@ class RetinaNet(DetectorBase):
     # ------------------------------------------------------ detection hooks
     def _loss_from_outputs(self, outputs, gt, sample_weight=None):
         if self.is_pretraining:
-            return torch.mean(loss_ops.softmax_cross_entropy(outputs, gt))
+            return loss_ops.weighted_mean(loss_ops.softmax_cross_entropy(outputs, gt))
         pconf, pyx, phw = retina_head.flatten_preds(outputs, self.num_classes)
         return retina_head.retina_loss(pconf, pyx, phw, self.anchors, gt,
                                        self.num_classes, self.alpha, self.gamma,
@@ -155,14 +156,15 @@ class RetinaNet(DetectorBase):
             return super().train_step(images, gt, lr)
         self.net.train()
         params = dict(self.net.named_parameters())
-        logits = self.net(self._preprocess(images))
-        loss = (self._loss_from_outputs(logits, gt)
-                + self.weight_decay * global_l2(params.values()))
-        acc = torch.mean((torch.argmax(logits.detach(), -1) == gt).to(torch.float32))
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with mesh_lib.over(self.mesh):
+            logits = self.net(self._preprocess(images))
+            loss = self._loss_from_outputs(logits, gt)
+            acc = loss_ops.weighted_mean(
+                (torch.argmax(logits.detach(), -1) == gt).to(torch.float32))
+        grads, loss, (acc,) = self._step_grads(loss, params, acc)
         self._optimizer.update(dict(zip(params, grads)), self.opt_state, params, lr)
         self.global_step += 1
-        return loss.detach(), acc
+        return loss, acc
 
     def train_one_epoch(self, lr, writer=None):
         """Detection: the epoch's mean loss. Pretraining: ``(mean loss, mean
@@ -198,16 +200,19 @@ class RetinaNet(DetectorBase):
 
     def save_weight(self, mode, path):
         """Pretraining saves the ``feature_extractor`` subtree and the step
-        only (as tpudet does); detection saves everything."""
+        only (as tpudet does); detection saves everything. Rank 0 writes and
+        the others wait."""
         if not self.is_pretraining:
             return super().save_weight(mode, path)
         if mode not in ("latest", "best"):
             raise ValueError(f"mode must be 'latest' or 'best', got {mode!r}")
-        state = {"state_dict": {k: v for k, v in self.net.state_dict().items()
-                                if k.startswith("feature_extractor.")},
-                 "global_step": self.global_step}
-        fname = ckpt.save_state(path, state, self.global_step)
-        print(">> save", mode, "model in", fname, "successfully")
+        if self.mesh.rank == 0:
+            state = {"state_dict": {k: v for k, v in self.net.state_dict().items()
+                                    if k.startswith("feature_extractor.")},
+                     "global_step": self.global_step}
+            fname = ckpt.save_state(path, state, self.global_step)
+            print(">> save", mode, "model in", fname, "successfully")
+        mesh_lib.barrier(self.mesh, self.device)
 
     def load_pretraining_weight(self, path):
         """Copy the backbone's parameters and BatchNorm statistics from a

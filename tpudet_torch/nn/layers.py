@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudet_torch.runtime import mesh as mesh_lib
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
 
@@ -172,6 +174,12 @@ class BatchNorm(nn.Module):
     Eval mode normalises with the running statistics. Either way the output is
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, returned in
     the input's dtype.
+
+    Under an active mesh (``mesh.over``, a data-parallel train step) the
+    statistics are tpudet's global ones: ``Σx`` and ``Σx²`` are summed over
+    the ranks in float32 (one all-reduce) and scaled by ``1/n`` of the whole
+    batch, so every rank applies the same running-statistics update, and the
+    backward sums their cotangents (``Σdy``, ``Σdy·x̂``) over the ranks.
     """
 
     def __init__(self, channels: int):
@@ -185,9 +193,12 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             dims = [0, *range(2, x.dim())]
-            inv_n = 1.0 / (x32.numel() // x32.shape[1])
-            mean = torch.sum(x32, dims) * inv_n
-            var = torch.clamp(torch.sum(x32 * x32, dims) * inv_n - mean * mean, min=0.0)
+            s1, s2 = torch.sum(x32, dims), torch.sum(x32 * x32, dims)
+            if mesh_lib.reduces():
+                s1, s2 = mesh_lib.all_reduce_sum(torch.stack([s1, s2])).unbind(0)
+            inv_n = 1.0 / (mesh_lib.active_world() * (x32.numel() // x32.shape[1]))
+            mean = s1 * inv_n
+            var = torch.clamp(s2 * inv_n - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from tpudet_torch.runtime import mesh as mesh_lib
+
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:
     """``0.5 x^2`` for ``|x| < 1`` else ``|x| - 0.5``."""
@@ -75,8 +77,17 @@ def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 def weighted_mean(per_sample: torch.Tensor, sample_weight=None) -> torch.Tensor:
     """Mean over the real samples of a batch; ``sample_weight`` is 1 for real
-    rows and 0 for padding rows (None: a plain mean)."""
+    rows and 0 for padding rows (None: a plain mean).
+
+    Under an active mesh of R ranks, each holding its rows of the batch, this
+    rank's share of the global mean: its own numerator over the global
+    denominator (the mask summed over the ranks; without a mask, R times its
+    rows), so the shares of the ranks sum to tpudet's mean over the whole
+    device batch."""
+    world = mesh_lib.active_world()
     if sample_weight is None:
-        return torch.mean(per_sample)
+        mean = torch.mean(per_sample)
+        return mean if world == 1 else mean * (1.0 / world)
     w = sample_weight.to(per_sample.dtype)
-    return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(per_sample * w) / torch.clamp(mesh_lib.all_reduce_sum(torch.sum(w)),
+                                                   min=1.0)
