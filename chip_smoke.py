@@ -171,6 +171,18 @@ Phases, each raising on failure (nothing is caught):
      device augmentation, then 2 per step: each rank's gathered rows equal
      those a CPU dataset of the same seed assigns it, finite losses. The kernels are
      built before the ranks are spawned; a rank that fails fails the run.
+ 20. the convergence protocol's machinery (``scripts/train_convergence_torch.py``):
+     ``run_model("RefineDet320")``, the spec that joins ``host_feed`` and
+     ``gt_pad`` 24, on 256 train and 16 held-out synthvoc scenes rendered at
+     320x320, its schedule scaled to 60 steps, ``--eval-every`` 10 and a
+     periodic checkpoint every 40 steps: one assignment at G = 24 and one
+     mining pool a step, each training call's kernels == the plain versions
+     on its inputs, evaluations at steps 45 and 57 with no assignment;
+     then a resume from the step-45 checkpoint (a copy of the run cut there)
+     whose loaded parameters, BatchNorm statistics, velocity and
+     ``global_step`` equal those saved bit for bit and whose appended curve
+     equals the run's; ``eval_from_checkpoint`` with the run's mAP; the host
+     feed's images/s alone and a profiled step on it.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -182,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3874,6 +3887,320 @@ def data_parallel_record(dp, key):
                                       for rank in dp["resident"]["counts"]]}}
 
 
+# ------------------------------------------------- the convergence protocol
+PROTOCOL_NAME = "RefineDet320"  # the spec with host_feed and gt_pad 24
+PROTOCOL_TRAIN = 256  # rendered synthvoc scenes at the spec's 320x320
+PROTOCOL_TEST = 16
+PROTOCOL_STEPS = 60  # the spec's schedule scaled to 60 steps: chunks of 3, 42, 12, 3
+PROTOCOL_CKPT_EVERY = 40  # one periodic checkpoint, at step 45
+PROTOCOL_EVAL_EVERY = 10  # mid-run evaluations at steps 45 and 57
+PROTOCOL_FEED_BATCHES = 10  # batches of the host feed timed alone
+PROTOCOL_GT_PAD = 24
+
+
+def protocol_script():
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "train_convergence_torch.py"
+    spec = importlib.util.spec_from_file_location("_train_convergence_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def protocol_state(model):
+    """The model's parameters and BatchNorm statistics, velocity and
+    ``global_step``, copied to the host."""
+    return dict(state={k: v.detach().cpu().clone() for k, v in model.net.state_dict().items()},
+                velocity={k: v.detach().cpu().clone() for k, v in model.velocity.items()},
+                global_step=model.global_step)
+
+
+def protocol_states_equal(got, want) -> bool:
+    import torch
+
+    return (got["global_step"] == want["global_step"]
+            and got["state"].keys() == want["state"].keys()
+            and got["velocity"].keys() == want["velocity"].keys()
+            and all(got[part][k].dtype == want[part][k].dtype
+                    and torch.equal(got[part][k], want[part][k])
+                    for part in ("state", "velocity") for k in want[part]))
+
+
+def protocol_hooks(tc, saved, loaded, models):
+    """Make ``tc._load_class`` give a subclass that records the state at
+    each ``save_weight`` (by the file's ``path-step``) and after each
+    ``load_weight``, and each model built. Returns the undo."""
+    real = tc._load_class
+
+    def load_class(path):
+        cls = real(path)
+
+        class Recorded(cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                models.append(self)
+
+            def save_weight(self, mode, path):
+                super().save_weight(mode, path)
+                saved[f"{path}-{self.global_step}"] = protocol_state(self)
+
+            def load_weight(self, path):
+                super().load_weight(path)
+                loaded.append(protocol_state(self))
+
+        Recorded.__name__ = cls.__name__
+        return Recorded
+
+    tc._load_class = load_class
+
+    def undo():
+        tc._load_class = real
+    return undo
+
+
+def protocol_spy(captured, evaluations):
+    """Record each training call's inputs of both kernels' wrappers (not
+    those of the evaluations), and the kernels' launches in each call of
+    ``evaluate_model``. Returns the undo."""
+    from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
+    from tpudet_torch.runtime import evaluate
+
+    real = (assign_kernel.assign_anchors, nms_kernel.nms_rows, evaluate.evaluate_model)
+    state = {"evaluating": False}
+
+    def spy(key, fn):
+        def call(*a):
+            if not state["evaluating"]:
+                captured.append((key, a))
+            return fn(*a)
+        return call
+
+    def evaluate_model(model, records, *args, **kwargs):
+        before = kernel_counts()
+        state["evaluating"] = True
+        try:
+            out = real[2](model, records, *args, **kwargs)
+        finally:
+            state["evaluating"] = False
+        after = kernel_counts()
+        evaluations.append(dict(images=len(records),
+                                counts={k: after[k] - before[k] for k in after}))
+        return out
+
+    assign_kernel.assign_anchors = spy("assign", real[0])
+    nms_kernel.nms_rows = spy("nms_rows", real[1])
+    evaluate.evaluate_model = evaluate_model
+
+    def undo():
+        assign_kernel.assign_anchors, nms_kernel.nms_rows, evaluate.evaluate_model = real
+    return undo
+
+
+def protocol_feed_alone(tc, images, gt):
+    """Images/s of ``MemmapFeeder`` alone over ``PROTOCOL_FEED_BATCHES``
+    batches, from its construction (the producer thread included)."""
+    t = time.perf_counter()
+    feeder = tc.MemmapFeeder(images, gt, TRAIN_BATCH, seed=1)
+    try:
+        for _ in range(PROTOCOL_FEED_BATCHES):
+            b_images, b_gt = next(feeder)
+    finally:
+        feeder.close()
+    seconds = time.perf_counter() - t
+    if b_images.shape != (TRAIN_BATCH, *images.shape[1:]) or b_gt.shape[1:] != (
+            PROTOCOL_GT_PAD, 5):
+        raise AssertionError(f"the host feed gave {b_images.shape}, {b_gt.shape}")
+    return PROTOCOL_FEED_BATCHES * TRAIN_BATCH / seconds
+
+
+def protocol_cut_copy(tc, run_root: Path, cut_root: Path, step: int):
+    """A copy of the run as a run cut after its periodic checkpoint at
+    ``step`` leaves it: that checkpoint, ``ckpt_meta.json`` of that step and
+    the curve up to it; the dataset shared."""
+    src = run_root / "torch_runs" / PROTOCOL_NAME
+    dst = cut_root / "torch_runs" / PROTOCOL_NAME
+    dst.mkdir(parents=True)
+    (cut_root / "data").symlink_to(run_root / "data")
+    (dst / f"ckpt-{step}.pt").symlink_to(src / f"ckpt-{step}.pt")
+    curve = [json.loads(ln) for ln in (src / "curve.jsonl").read_text().splitlines()]
+    kept = [c for c in curve if c["step"] <= step]
+    (dst / "curve.jsonl").write_text("".join(json.dumps(c) + "\n" for c in kept))
+    (dst / "ckpt_meta.json").write_text(json.dumps(
+        {"steps": step, "elapsed_s": kept[-1]["elapsed_s"]}))
+    return curve
+
+
+def phase_protocol(dev):
+    """20. The convergence script's machinery on the card: ``run_model`` of
+    RefineDet320 (``host_feed``, ``gt_pad`` 24) on a small rendered set, the
+    spec's schedule scaled to ``PROTOCOL_STEPS`` steps, ``--eval-every``, a
+    periodic checkpoint; a resume from it; ``eval_from_checkpoint``."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    tc = protocol_script()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    saved, loaded, models, captured, evaluations = {}, [], [], [], []
+    real_ckpt_every = tc.CKPT_EVERY
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp) / "run"
+        kwargs = dict(root=str(root), n_train=PROTOCOL_TRAIN, n_test=PROTOCOL_TEST)
+        t = time.perf_counter()
+        _, (h, w), _, _, total_steps, _ = tc.model_specs()[PROTOCOL_NAME]
+        d = tc.synthvoc.build(str(root / "data"), h, w, n_train=PROTOCOL_TRAIN,
+                              n_test=PROTOCOL_TEST)
+        render_s = time.perf_counter() - t
+        train_images, train_gt, _, _ = tc.synthvoc.load(d)
+        feed_ips = protocol_feed_alone(tc, train_images, train_gt[:, :PROTOCOL_GT_PAD])
+        steps_scale = PROTOCOL_STEPS / total_steps
+        undo_hooks = protocol_hooks(tc, saved, loaded, models)
+        undo_spy = protocol_spy(captured, evaluations)
+        tc.CKPT_EVERY = PROTOCOL_CKPT_EVERY
+        try:
+            reset_kernel_counts()
+            result = tc.run_model(PROTOCOL_NAME, steps_scale=steps_scale,
+                                  eval_every=PROTOCOL_EVAL_EVERY, **kwargs)
+            counts = kernel_counts()
+            run_evals = list(evaluations)
+            run_captured = list(captured)
+            captured.clear()
+            # the resume, from a copy of the run as a cut after its checkpoint
+            prefix = str(root / "torch_runs" / PROTOCOL_NAME / "ckpt")
+            (ckpt_step,) = [int(k.rsplit("-", 1)[1]) for k in saved
+                            if int(k.rsplit("-", 1)[1]) < PROTOCOL_STEPS]
+            cut_root = Path(tmp) / "cut"
+            curve = protocol_cut_copy(tc, root, cut_root, ckpt_step)
+            reset_kernel_counts()
+            resumed = tc.run_model(PROTOCOL_NAME, steps_scale=steps_scale, resume=True,
+                                   **dict(kwargs, root=str(cut_root)))
+            resumed_counts = kernel_counts()
+            resumed_curve = [json.loads(ln) for ln in (
+                cut_root / "torch_runs" / PROTOCOL_NAME / "curve.jsonl").read_text().splitlines()]
+            evaluations.clear()
+            salvaged = tc.eval_from_checkpoint(PROTOCOL_NAME, **kwargs)
+            salvage_evals = list(evaluations)
+        finally:
+            tc.CKPT_EVERY = real_ckpt_every
+            undo_spy()
+            undo_hooks()
+        run_dir = root / "torch_runs" / PROTOCOL_NAME
+        evals = [json.loads(ln) for ln in (run_dir / "eval.jsonl").read_text().splitlines()]
+        ckpts = sorted(p.name for p in run_dir.glob("ckpt-*"))
+
+        # the main path's launches: the assignment and the mining pool once a step
+        eval_counts = {k: sum(e["counts"][k] for e in run_evals) for k in counts}
+        train_counts = {k: counts[k] - eval_counts[k] for k in counts}
+        steps = result["steps"]
+        if (steps != PROTOCOL_STEPS or train_counts["assign"] != steps
+                or train_counts["sorted_scan"] != steps
+                or not steps <= train_counts["nms_rows"] <= 2 * steps):
+            raise AssertionError(f"{steps} steps of the protocol launched {train_counts} "
+                                 f"(evaluations {eval_counts} excluded)")
+        widths = {int(a[2].shape[1]) for key, a in run_captured if key == "assign"}
+        if widths != {PROTOCOL_GT_PAD}:
+            raise AssertionError(f"the assignment saw gt widths {widths}, not "
+                                 f"{PROTOCOL_GT_PAD}")
+        compared = dp_kernels_vs_plain(run_captured)
+        if compared != train_counts["assign"] + train_counts["nms_rows"]:
+            raise AssertionError(f"{compared} captured calls for {train_counts}")
+        # both kernels timed at G = 24 on the first step's inputs
+        assign = assign_timing(next(a for key, a in run_captured if key == "assign"))
+        mining = nms_pool_timing(next(a for key, a in run_captured
+                                      if key == "nms_rows" and a[5] is not None))
+        log(f"phase 20 assign at G = {PROTOCOL_GT_PAD}: kernel {assign['ms']:.4f} ms "
+            f"(device {fmt_ms(assign['device_ms'], 4)} ms), plain {assign['plain_ms']:.4f} "
+            f"ms, bound {assign['bound_ms']:.6f} ms ({assign['bound_by']})")
+        log_pool(f"{PROTOCOL_NAME}'s mining pool at G = {PROTOCOL_GT_PAD}", mining)
+        for e in run_evals + salvage_evals:
+            if e["counts"]["assign"] or e["counts"]["nms_rows"] < e["images"]:
+                raise AssertionError(f"an evaluation of {e['images']} images launched "
+                                     f"{e['counts']}")
+        if [e["step"] for e in evals] != [45, 57] or ckpts != ["ckpt-45.pt",
+                                                                   "ckpt-60.pt"]:
+            raise AssertionError(f"evaluations at {[e['step'] for e in evals]}, "
+                                 f"checkpoints {ckpts}")
+        # the resume: the state loaded == the state saved, bit for bit
+        if len(loaded) != 2 or not protocol_states_equal(loaded[0],
+                                                         saved[f"{prefix}-{ckpt_step}"]):
+            raise AssertionError(f"the resumed state differs from the one saved at step "
+                                 f"{ckpt_step} ({len(loaded)} loads)")
+        if not protocol_states_equal(loaded[1], saved[f"{prefix}-{PROTOCOL_STEPS}"]):
+            raise AssertionError("eval_from_checkpoint's state differs from the run's "
+                                 "final one")
+        if ([(c["step"], c["lr"]) for c in resumed_curve]
+                != [(c["step"], c["lr"]) for c in curve]):
+            raise AssertionError(f"the resumed curve {resumed_curve} is not the run's {curve}")
+        resumed_steps = PROTOCOL_STEPS - ckpt_step
+        if (resumed["steps"] != PROTOCOL_STEPS
+                or resumed_counts["assign"] != resumed_steps):
+            raise AssertionError(f"the resume trained to {resumed['steps']} with "
+                                 f"{resumed_counts}")
+        if salvaged["mAP@0.5_voc07"] != result["mAP@0.5_voc07"]:
+            raise AssertionError(f"eval_from_checkpoint's mAP {salvaged['mAP@0.5_voc07']} "
+                                 f"!= the run's {result['mAP@0.5_voc07']}")
+        losses = [c["mean_loss"] for c in curve]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"non-finite losses {losses}")
+
+        # one profiled step of the trained model on the host feed
+        model = models[0]
+        model.train_iterator = tc.MemmapFeeder(train_images,
+                                               train_gt[:, :PROTOCOL_GT_PAD],
+                                               TRAIN_BATCH, seed=2)
+        try:
+            model.num_train = TRAIN_BATCH
+            model.train_one_epoch(1e-5)  # the feeder's first batch is waited for here
+            profile = profile_feed_step(model, 1e-5)
+        finally:
+            model.train_iterator.close()
+        del models[:], model
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    log(f"phase 20, {PROTOCOL_NAME} through train_convergence_torch.run_model on "
+        f"{PROTOCOL_TRAIN}/{PROTOCOL_TEST} rendered scenes ({render_s:.1f} s to render): "
+        f"{steps} steps (curve {[c['step'] for c in curve]}, losses {losses}), "
+        f"{train_counts['assign']} assignments and {train_counts['sorted_scan']} mining-pool "
+        f"scans at G = {PROTOCOL_GT_PAD} ({train_counts['per_pick']} per-pick reruns), "
+        f"{compared} calls == plain; evaluations at {[e['step'] for e in evals]}, mAP "
+        f"{[e['mAP@0.5_voc07'] for e in evals]}, launches {[e['counts'] for e in run_evals]}")
+    log(f"phase 20: resumed from the checkpoint at step {ckpt_step}, the state bit for "
+        f"bit the saved one ({len(loaded[0]['state'])} tensors, "
+        f"{len(loaded[0]['velocity'])} velocities, global_step "
+        f"{loaded[0]['global_step']}), {resumed_steps} steps more, the curve equal to the "
+        f"run's; eval_from_checkpoint mAP {salvaged['mAP@0.5_voc07']} == the run's "
+        f"{result['mAP@0.5_voc07']}")
+    log(f"phase 20 took {seconds:.1f} s; the host feed alone {feed_ips:.1f} images/s, "
+        f"training on it {result['train_imgs_per_sec']} images/s (evaluations included), "
+        f"a profiled step {fmt_share(profile['busy_share'])} busy; {card}")
+    return dict(seconds=seconds, render_s=render_s, feed_images_per_s=feed_ips,
+                train_images_per_s=result["train_imgs_per_sec"], profile=profile,
+                steps=steps, counts=train_counts, eval_counts=eval_counts,
+                evals=evals, mAP=result["mAP@0.5_voc07"], resumed_counts=resumed_counts,
+                resumed_from=ckpt_step, eval_only_mAP=salvaged["mAP@0.5_voc07"],
+                compared=compared, assign=assign, mining_pool=mining, card=card)
+
+
+def protocol_record(protocol, key):
+    """A kernel's launches in phase 20's run: its training steps and its
+    evaluations (for the NMS kernel, these by design)."""
+    record = {"launches": protocol["counts"][key] + protocol["eval_counts"][key],
+              "launches_per_step": protocol["counts"][key] / protocol["steps"],
+              "eval_launches": protocol["eval_counts"][key]}
+    timing = protocol["mining_pool" if key == "nms_rows" else "assign"]
+    record.update({k: timing[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                          "bound_by")})
+    if key == "nms_rows":
+        record["eval_launches_by_path"] = {k: protocol["eval_counts"][k]
+                                           for k in ("sorted_scan", "per_pick")}
+        record.update({k: timing[k] for k in ("shape", "full_shape", "picks")})
+    return record
+
+
 def fmt_share(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -4008,6 +4335,10 @@ def main() -> int:
     log(json.dumps({"data_parallel": dp}))
     dp_counts = ([dp["one_rank"]["timed"]["counts"]] + dp["two_ranks"]["counts"]
                  + [c for rank in dp["resident"]["counts"] for c in rank])
+    # 20. the convergence protocol's machinery: the host feed at gt_pad 24,
+    # --eval-every, a periodic checkpoint, --resume, --eval-only
+    protocol = phase_protocol(dev)
+    log(json.dumps({"protocol": protocol}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -4088,7 +4419,8 @@ def main() -> int:
                       + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]
                       + sum(c["nms_rows"] for c in res_counts)
                       + sum(c["nms_rows"] for c in ep_counts)
-                      + sum(c["nms_rows"] for c in dp_counts)),
+                      + sum(c["nms_rows"] for c in dp_counts)
+                      + protocol_record(protocol, "nms_rows")["launches"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -4157,7 +4489,8 @@ def main() -> int:
                       "launches_by_path": {k: sum(c[k] for c in res_counts)
                                            for k in ("sorted_scan", "per_pick")}},
          "entry_points": entry_point_record(entry_points, "nms_rows"),
-         "data_parallel": data_parallel_record(dp, "nms_rows")},
+         "data_parallel": data_parallel_record(dp, "nms_rows"),
+         "protocol": protocol_record(protocol, "nms_rows")},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -4165,7 +4498,8 @@ def main() -> int:
                       + ssd512["records"][1]["launches"] + f_train["counts"]["assign"]
                       + sum(c["assign"] for c in res_counts)
                       + sum(c["assign"] for c in ep_counts)
-                      + sum(c["assign"] for c in dp_counts)),
+                      + sum(c["assign"] for c in dp_counts)
+                      + protocol_record(protocol, "assign")["launches"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -4189,7 +4523,8 @@ def main() -> int:
                       "launches_per_step": [c["assign"] / res_steps
                                             for c in res_counts]},
          "entry_points": entry_point_record(entry_points, "assign"),
-         "data_parallel": data_parallel_record(dp, "assign")},
+         "data_parallel": data_parallel_record(dp, "assign"),
+         "protocol": protocol_record(protocol, "assign")},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -1,18 +1,29 @@
 """The port's convergence script (``scripts/train_convergence_torch.py``)
-against tpudet's SSD300 path of ``scripts/train_convergence.py``.
+against tpudet's (``scripts/train_convergence.py``).
 
-The spec and the loop's schedule are compared exactly: both scripts'
+Every one of tpudet's 24 specs is compared exactly: both scripts'
 ``run_model`` drive a stand-in model that records each epoch's steps and lr,
-over stand-ins for the dataset, the feeder and the evaluation. Then the port's
-script runs for real on the CPU at a tiny size: 76x76, 16 train and 4 test
-scenes, 2 steps, batch 4 (the spec's 32 exceeds 16 scenes, and bf16 at
-batch 32 on one CPU thread would take minutes a step).
+over stand-ins for the dataset, both feeders and the evaluation, so the
+epochs, the feeder each spec builds (with its arguments and gt width), the
+config the model gets, the curve, the periodic checkpoints, ``--resume``,
+``--eval-every`` and ``--eval-only`` are held against tpudet's. The stall
+watchdog runs in a subprocess. ``MemmapFeeder``'s batches and the losslessness
+of ``gt_pad`` are held on numpy inputs, and the script runs for real on the CPU
+at a tiny size: SSD300 at 76x76 and RefineDet320 at 64x64 through the host
+feed and ``gt_pad``, 16 train and 4 test scenes, 2 steps, batch 4 (the specs'
+32 exceed 16 scenes, and bf16 at batch 32 on one CPU thread would take minutes
+a step).
 """
 
 import importlib.util
 import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,10 +32,21 @@ import tpudet.data.device_dataset as jax_device_dataset
 import tpudet.runtime.evaluate as jax_evaluate
 import tpudet_torch.data.device_dataset as t_device_dataset
 import tpudet_torch.runtime.evaluate as t_evaluate
+from tpudet.heads import refine as jax_refine
+from tpudet_torch.heads import refine as t_refine
+from tpudet_torch.models.refinedet import _refine_feat_shapes
+from torch_refine_common import gt_rows
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
+# every spec name of tpudet's script, in its order
+SPEC_NAMES = [
+    "SSD300", "SSD512", "YOLOv2", "YOLOv3", "YOLOv3-consistent", "YOLOv2-consistent",
+    "RetinaNet", "RetinaNet-long", "CenterNet-long", "RefineDet320", "PFPNetR",
+    "RefineDet320-pad60", "LHRCNN", "CenterNet", "FCOS", "FCOS-long", "FCOS-long2",
+    "FCOS-long3", "RefineDet320-long", "LHRCNN-long", "FCOS-consistent", "LHRCNN-long2",
+    "PFPNetR-pad60", "PFPNetR-long"]
 
 
 def _load(name, module_name):
@@ -40,89 +62,331 @@ def scripts():
             _load("train_convergence_torch.py", "_torch_train_convergence"))
 
 
-def test_ssd300_spec_equals_tpudets(scripts):
-    """Config, input, base lr, steps and schedule; the class is the port's."""
+@pytest.mark.parametrize("name", SPEC_NAMES)
+def test_ssd300_spec_equals_tpudets(scripts, name):
+    """Each spec: config, input, base lr, steps and schedule equal tpudet's;
+    the class is the port's."""
     jax_tc, tc = scripts
-    want = jax_tc.model_specs()["SSD300"]
-    got = tc.model_specs()["SSD300"]
+    want = jax_tc.model_specs()[name]
+    got = tc.model_specs()[name]
     assert got[0] == want[0].replace("tpudet.", "tpudet_torch.", 1)
     assert got[1:] == want[1:]
-    assert tc._load_class(got[0]).__module__ == "tpudet_torch.models.ssd"
-    assert list(tc.model_specs()) == ["SSD300"]
+    assert tc._load_class(got[0]).__module__ == want[0].rsplit(".", 1)[0].replace(
+        "tpudet.", "tpudet_torch.", 1)
 
 
-class _Feeder:
-    def __init__(self, *args, **kwargs):
-        pass
-
-    def close(self):
-        pass
+def test_spec_names_and_all_equal_tpudets(scripts):
+    jax_tc, tc = scripts
+    assert list(tc.model_specs()) == list(jax_tc.model_specs()) == SPEC_NAMES
+    assert tc.ALL == jax_tc.ALL
 
 
-def _fake_model(epochs):
+# ------------------------------------------------------------ the stand-ins
+class _Cut(Exception):
+    """A run cut off in the middle of an epoch."""
+
+
+def _feeder_class(made, kind):
+    class Feeder:
+        def __init__(self, images, gt, batch, **kwargs):
+            kwargs.pop("device", None)  # the port's, on every DeviceDataset
+            made.append((kind, images.shape, gt.shape, batch, kwargs))
+
+        def close(self):
+            pass
+
+    return Feeder
+
+
+def _fake_model(epochs, configs, cut_at=None):
+    """A model that records each epoch's (steps, lr) and its config, writes
+    an empty ``{path}-{step}.pt`` for ``save_weight``, takes ``global_step``
+    from ``ckpt_meta.json`` in ``load_weight``, and raises ``_Cut`` in the
+    epoch that would pass step ``cut_at``."""
+
     class Model:
         def __init__(self, config, provider, device=None):
+            configs.append(dict(config))
             self.batch = config["batch_size"]
             self.num_train = provider["num_train"]
             self.train_initializer = "reset"
+            self.global_step = 0
 
         def train_one_epoch(self, lr):
             assert self.train_initializer is None
-            epochs.append((self.num_train // self.batch, lr))
+            n = self.num_train // self.batch
+            if cut_at is not None and self.global_step + n > cut_at:
+                raise _Cut(self.global_step)
+            epochs.append((n, lr))
+            self.global_step += n
             return 1.0
 
         def save_weight(self, mode, path):
-            pass
+            Path(f"{path}-{self.global_step}.pt").touch()
+
+        def load_weight(self, path):
+            with open(os.path.join(os.path.dirname(path), "ckpt_meta.json")) as f:
+                self.global_step = json.load(f)["steps"]
 
     return Model
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_the_loop_takes_tpudets_steps_at_tpudets_lr(monkeypatch, tmp_path, scripts, smoke):
-    """Every epoch's steps and lr, in order (4000 steps, or the smoke run's
-    60), the files written, and the result's keys."""
+@pytest.fixture
+def stand_ins(monkeypatch, tmp_path, scripts):
+    """Both scripts over stand-ins. Returns ``run(side, fn, *args, **kwargs)``
+    that calls ``fn`` of that side's script with its model stand-in and
+    gives back the epochs, the models' configs, the feeders made and the
+    result; the port's run directory is ``tmp_path/port/torch_runs``,
+    tpudet's ``tmp_path/jax``."""
     jax_tc, tc = scripts
     images = np.zeros((4, 8, 8, 3), np.uint8)
     gt = -np.ones((4, 60, 5), np.float32)
-    monkeypatch.setattr(tc.synthvoc, "build", lambda *a, **k: str(tmp_path))
-    monkeypatch.setattr(tc.synthvoc, "load", lambda d: (images, gt, images, gt))
-    monkeypatch.setattr(tc.synthvoc, "test_records", lambda d: iter([]))
-    monkeypatch.setattr(jax_device_dataset, "DeviceDataset", _Feeder)
-    monkeypatch.setattr(t_device_dataset, "DeviceDataset", _Feeder)
+    # tpudet's watchdog stays armed after a cut run: keep it from firing
+    monkeypatch.setenv("STALL_LIMIT_S", "1e9")
+    for module in (jax_tc, tc):
+        monkeypatch.setattr(module.synthvoc, "build", lambda *a, **k: str(tmp_path))
+        monkeypatch.setattr(module.synthvoc, "load", lambda d: (images, gt, images, gt))
+        monkeypatch.setattr(module.synthvoc, "test_records", lambda d: iter([]))
     monkeypatch.setattr(jax_evaluate, "evaluate_model", lambda m, r: (0.5, {3: 0.5}))
     monkeypatch.setattr(t_evaluate, "evaluate_model", lambda m, r: (0.5, {3: 0.5}))
     monkeypatch.setattr(jax_tc, "RUNS_ROOT", str(tmp_path / "jax"))
+
+    def run(side, fn, *args, cut_at=None, **kwargs):
+        module, dataset = ((jax_tc, jax_device_dataset) if side == "tpudet"
+                           else (tc, t_device_dataset))
+        if side == "port":
+            kwargs.update(root=str(tmp_path / "port"), device="cpu")
+        epochs, configs, made = [], [], []
+        monkeypatch.setattr(module, "_load_class",
+                            lambda path: _fake_model(epochs, configs, cut_at))
+        monkeypatch.setattr(module, "MemmapFeeder", _feeder_class(made, "memmap"))
+        monkeypatch.setattr(dataset, "DeviceDataset", _feeder_class(made, "device"))
+        try:
+            result = getattr(module, fn)(*args, **kwargs)
+        except _Cut:
+            result = None
+        return dict(epochs=epochs, configs=configs, made=made, result=result)
+
+    return run
+
+
+def _schedule_lrs(spec, smoke):
+    """Each step's lr, from the spec's schedule alone."""
+    _, _, _, base_lr, total, schedule = spec
+    if smoke:
+        total, schedule = 60, [(1.0, 1.0)]
+    lrs = [base_lr * mult for frac, mult in schedule
+           for _ in range(max(1, int(round(total * frac))))]
+    return lrs[:total]
+
+
+def _lines(path):
+    return [json.loads(ln) for ln in Path(path).read_text().splitlines()]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("name", SPEC_NAMES)
+def test_the_loop_takes_tpudets_steps_at_tpudets_lr(tmp_path, scripts, stand_ins, name,
+                                                    smoke):
+    """Every epoch's steps and lr, in order; the feeder each spec builds
+    (``MemmapFeeder`` for ``host_feed``, chunked ``DeviceDataset`` for
+    ``chunk_bytes``, else resident), its arguments and the gt width it gets
+    (24 under ``gt_pad``); the config the model gets; the files written and
+    the result's keys."""
+    jax_tc, tc = scripts
+    want = stand_ins("tpudet", "run_model", name, smoke=smoke)
+    got = stand_ins("port", "run_model", name, smoke=smoke)
+    assert got["epochs"] == want["epochs"]
+    assert [lr for n, lr in got["epochs"] for _ in range(n)] == _schedule_lrs(
+        tc.model_specs()[name], smoke)
+    assert got["made"] == want["made"] and len(got["made"]) == 1
+    config = tc.model_specs()[name][2]
+    kind, _, gt_shape, batch, kwargs = got["made"][0]
+    assert kind == ("memmap" if config.get("host_feed") else "device")
+    assert gt_shape[1] == config.get("gt_pad", 60) and batch == config["batch_size"]
+    if "chunk_bytes" in config:
+        assert kwargs["chunk_bytes"] == config["chunk_bytes"]
+        assert kwargs["rotate_every"] == config["rotate_every"]
+    assert got["configs"] == want["configs"]
+    assert not set(got["configs"][0]) & set(tc.SCRIPT_KEYS)
+    assert set(got["result"]) == set(want["result"]) | {"device"}
+    run_dir = tmp_path / "port" / "torch_runs" / name
+    steps = sum(n for n, _ in got["epochs"])
+    result_name = "result.json" if steps >= 500 and not smoke else "probe_result.json"
+    assert json.loads((run_dir / result_name).read_text())["mAP@0.5_voc07"] == 0.5
+    curve = _lines(run_dir / "curve.jsonl")
+    assert [c["step"] for c in curve] == list(np.cumsum([n for n, _ in got["epochs"]]))
+    assert json.loads((run_dir / "ckpt_meta.json").read_text())["steps"] == steps
+    jax_dir = tmp_path / "jax" / name
+    assert sorted(p.name for p in run_dir.glob("ckpt-*")) == sorted(
+        p.name for p in jax_dir.glob("ckpt-*"))
+
+
+def test_resume_after_a_cut_takes_tpudets_epochs_and_appends_its_curve(tmp_path, stand_ins):
+    """A run cut at step 1225 (its last periodic checkpoint at 1000), then
+    ``--resume``: the resumed epochs, the appended curve (steps and lrs),
+    ``ckpt_meta.json`` and the checkpoints kept equal tpudet's."""
+    name = "RefineDet320"
     runs = {}
-    for side, module, kwargs in ((("tpudet", jax_tc, {})),
-                                 ("port", tc, {"root": str(tmp_path / "port"), "device": "cpu"})):
-        epochs = []
-        monkeypatch.setattr(module, "_load_class", lambda path: _fake_model(epochs))
-        result = module.run_model("SSD300", smoke=smoke, **kwargs)
-        runs[side] = epochs, result
-    (want, want_result), (got, got_result) = runs["tpudet"], runs["port"]
-    assert got == want
-    assert sum(n for n, _ in got) == (60 if smoke else 4000)
-    if not smoke:
-        lrs = [lr for n, lr in got for _ in range(n)]
-        assert (lrs[0], lrs[200], lrs[2999], lrs[3000], lrs[3999]) == (
-            1e-4, 1e-3, 1e-3, 1e-4, 1e-5)
-    assert set(got_result) == set(want_result) | {"device"}
-    name = "probe_result.json" if smoke else "result.json"
-    run_dir = tmp_path / "port" / "torch_runs" / "SSD300"
-    assert json.loads((run_dir / name).read_text())["mAP@0.5_voc07"] == 0.5
-    curve = [json.loads(ln) for ln in (run_dir / "curve.jsonl").read_text().splitlines()]
-    assert [c["step"] for c in curve] == list(np.cumsum([n for n, _ in got]))
+    for side in ("tpudet", "port"):
+        cut = stand_ins(side, "run_model", name, cut_at=1225)
+        assert cut["result"] is None and sum(n for n, _ in cut["epochs"]) == 1200
+        runs[side] = stand_ins(side, "run_model", name, resume=True)
+    want, got = runs["tpudet"], runs["port"]
+    assert got["epochs"] == want["epochs"]
+    assert sum(n for n, _ in got["epochs"]) == 5000 - 1000
+    port_dir = tmp_path / "port" / "torch_runs" / name
+    jax_dir = tmp_path / "jax" / name
+    curves = [[(c["step"], c["lr"]) for c in _lines(d / "curve.jsonl")]
+              for d in (port_dir, jax_dir)]
+    assert curves[0] == curves[1]
+    assert curves[0][23:25] == [(1200, 5e-4), (1050, 5e-4)]  # appended after the cut
+    assert (json.loads((port_dir / "ckpt_meta.json").read_text())["steps"]
+            == json.loads((jax_dir / "ckpt_meta.json").read_text())["steps"] == 5000)
+    assert sorted(p.name for p in port_dir.glob("ckpt-*")) == ["ckpt-5000.pt"]
+    assert got["result"]["steps"] == want["result"]["steps"] == 5000
+
+
+def test_eval_every_evaluates_at_tpudets_steps(tmp_path, stand_ins):
+    name = "RefineDet320"
+    stand_ins("tpudet", "run_model", name, eval_every=1000)
+    stand_ins("port", "run_model", name, eval_every=1000)
+    got = _lines(tmp_path / "port" / "torch_runs" / name / "eval.jsonl")
+    want = _lines(tmp_path / "jax" / name / "eval.jsonl")
+    assert [e["step"] for e in got] == [e["step"] for e in want] == [1000, 2000, 3000,
+                                                                     4000, 5000]
+    assert [set(e) for e in got] == [set(e) for e in want]
+    assert all(e["mAP@0.5_voc07"] == 0.5 for e in got)
+
+
+@pytest.mark.parametrize("steps", [200, 4000])
+def test_eval_only_writes_tpudets_result(tmp_path, stand_ins, steps):
+    """``eval_from_checkpoint`` on a run's ``ckpt_meta.json``: the result's
+    keys are tpudet's and ``device``, in the file tpudet writes
+    (``probe_result.json`` under 500 steps); the config the model gets has
+    the script's keys popped, as tpudet's."""
+    name = "PFPNetR"
+    for d in (tmp_path / "port" / "torch_runs" / name, tmp_path / "jax" / name):
+        d.mkdir(parents=True)
+        (d / "ckpt_meta.json").write_text(json.dumps({"steps": steps, "elapsed_s": 9.5}))
+    want = stand_ins("tpudet", "eval_from_checkpoint", name)
+    got = stand_ins("port", "eval_from_checkpoint", name)
+    assert set(got["result"]) == set(want["result"]) | {"device"}
+    assert {k: got["result"][k] for k in want["result"] if k != "eval_seconds"} == {
+        k: v for k, v in want["result"].items() if k != "eval_seconds"}
+    assert got["configs"] == want["configs"] and not got["made"]
+    fname = "result.json" if steps >= 500 else "probe_result.json"
+    run_dir = tmp_path / "port" / "torch_runs" / name
+    assert json.loads((run_dir / fname).read_text()) == got["result"]
+
+
+@pytest.mark.parametrize("argv, calls, rc", [
+    (["SSD300", "YOLOv2"], [("run", "SSD300"), ("run", "YOLOv2")], 1),
+    (["SSD300"], [("run", "SSD300")], 0),
+    (["SSD300", "--eval-only"], [("eval", "SSD300")], 0),
+    (["all"], None, 1),
+    (["NoSuchNet"], [], 2),
+])
+def test_main_runs_each_family_and_fails_unless_all_have_an_map(monkeypatch, capsys, scripts,
+                                                                argv, calls, rc):
+    """A family that raises is recorded with its error and the queue goes
+    on; the exit status is 1 unless every family has an mAP (tpudet's main
+    exits 0 either way); ``all`` is tpudet's ``ALL``."""
+    jax_tc, tc = scripts
+    seen = []
+
+    def run_model(name, **kwargs):
+        seen.append(("run", name))
+        if name == "YOLOv2":
+            raise RuntimeError("out of memory")
+        return {"model": name, "mAP@0.5_voc07": 0.5}
+
+    def eval_from_checkpoint(name):
+        seen.append(("eval", name))
+        return {"model": name, "mAP@0.5_voc07": 0.5}
+
+    monkeypatch.setattr(tc, "run_model", run_model)
+    monkeypatch.setattr(tc, "eval_from_checkpoint", eval_from_checkpoint)
+    assert tc.main(argv) == rc
+    assert seen == (calls if calls is not None else [("run", n) for n in jax_tc.ALL])
+    if rc != 2:
+        results = json.loads(capsys.readouterr().out)
+        assert [r["model"] for r in results] == [n for _, n in seen]
+        assert [("error" in r) for r in results] == [n == "YOLOv2" for _, n in seen]
+
+
+# ------------------------------------------------------------- the pieces
+def test_memmap_feeder_batches_equal_tpudets_and_close_stops_it(scripts):
+    """Seed 1, 40 rows at batch 8: twelve batches, so across two reshuffles."""
+    jax_tc, tc = scripts
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (40, 6, 6, 3), dtype=np.uint8)
+    gt = rng.normal(0, 1, (40, 24, 5)).astype(np.float32)
+    got_feed = tc.MemmapFeeder(images, gt, 8, seed=1)
+    want_feed = jax_tc.MemmapFeeder(images, gt, 8, seed=1)
+    try:
+        for _ in range(12):
+            (gi, gg), (wi, wg) = next(got_feed), next(want_feed)
+            assert gi.dtype == np.uint8 and gi.shape == (8, 6, 6, 3) and gg.shape == (8, 24, 5)
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gg, wg)
+    finally:
+        got_feed.close()
+        want_feed.close()
+    got_feed.t.join(timeout=5)
+    assert not got_feed.t.is_alive()
+
+
+def test_gt_pad_is_lossless_for_refine_loss():
+    """``refine_loss`` on fixed head outputs: the port's loss and gradients
+    with gt ``[B, 60, 5]`` (at most 6 real boxes an image) equal those with
+    its ``[:, :24]``, and equal tpudet's at width 24 within
+    ``tests/test_torch_refine.py``'s tolerances (21 classes, anchors at 64)."""
+    classes = 21
+    shapes = _refine_feat_shapes(64)
+    tanc, janc = t_refine.build_anchors(shapes), jax_refine.build_anchors(shapes)
+    rng = np.random.default_rng(11)
+    a = tanc.yx.shape[0]
+    heads = [rng.normal(0, s, (4, a, c)).astype(np.float32)
+             for s, c in ((0.5, 2), (0.5, 2), (2, 2), (0.5, 2), (0.5, 2), (2, classes))]
+    gt = gt_rows(rng, 4, 60, 6, 64.0, num_classes=classes - 1)
+    assert (gt[:, 6:] == -1).all() and (gt[:, 0, 0] >= 0).all()
+
+    def port(g):
+        tt = [torch.tensor(h, requires_grad=True) for h in heads]
+        loss = t_refine.refine_loss(*tt, tanc, torch.from_numpy(g), classes)
+        return loss, torch.autograd.grad(loss, tt)
+
+    loss60, grads60 = port(gt)
+    loss24, grads24 = port(np.ascontiguousarray(gt[:, :24]))
+    assert torch.equal(loss60, loss24)
+    assert all(torch.equal(g60, g24) for g60, g24 in zip(grads60, grads24))
+
+    def jax_loss(g, *h):
+        return jax_refine.refine_loss(*h, janc, g, classes)
+
+    want, wgrads = jax.jit(jax.value_and_grad(jax_loss, argnums=tuple(range(1, 7))))(
+        jnp.asarray(gt[:, :24]), *map(jnp.asarray, heads))
+    np.testing.assert_allclose(float(loss24.detach()), float(want), rtol=1e-5)
+    for g, w in zip(grads24, wgrads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+# ------------------------------------------------------- real runs on the CPU
+def _tiny_specs(monkeypatch, tc, name):
+    real = tc.model_specs
+
+    def specs():
+        path, hw, config, lr, steps, schedule = real()[name]
+        return {name: (path, hw, dict(config, batch_size=4), lr, steps, schedule)}
+
+    monkeypatch.setattr(tc, "model_specs", specs)
 
 
 def test_a_tiny_run_on_the_cpu_writes_a_probe_result(monkeypatch, tmp_path, scripts):
     _, tc = scripts
-    real = tc.model_specs
-
-    def specs():
-        path, hw, config, lr, steps, schedule = real()["SSD300"]
-        return {"SSD300": (path, hw, dict(config, batch_size=4), lr, steps, schedule)}
-
-    monkeypatch.setattr(tc, "model_specs", specs)
+    _tiny_specs(monkeypatch, tc, "SSD300")
     result = tc.run_model("SSD300", steps_scale=2 / 4000, root=str(tmp_path),
                           n_train=16, n_test=4, size=(76, 76), device="cpu")
     run_dir = tmp_path / "torch_runs" / "SSD300"
@@ -131,9 +395,120 @@ def test_a_tiny_run_on_the_cpu_writes_a_probe_result(monkeypatch, tmp_path, scri
     assert result["steps"] == 2 and result["input"] == [76, 76]
     assert result["eval_images"] == 4 and result["device"] == "cpu"
     assert 0.0 <= result["mAP@0.5_voc07"] <= 1.0
-    curve = [json.loads(ln) for ln in (run_dir / "curve.jsonl").read_text().splitlines()]
+    curve = _lines(run_dir / "curve.jsonl")
     assert [(c["step"], c["lr"]) for c in curve] == [(1, 1e-4), (2, 1e-3)]
     assert all(np.isfinite(c["mean_loss"]) for c in curve)
     assert (run_dir / "ckpt-2.pt").is_file()
     assert sorted(p.name for p in (tmp_path / "data" / "76x76").iterdir()) == [
         "DONE", "test_gt.npy", "test_images.npy", "train_gt.npy", "train_images.npy"]
+
+
+def test_a_tiny_refinedet_run_on_the_host_feed_resumes_and_evaluates(monkeypatch, tmp_path,
+                                                                     scripts):
+    """RefineDet320 at 64x64 through ``host_feed`` and ``gt_pad`` 24, with a
+    checkpoint every step and an evaluation every step: the feeder gets gt
+    of width 24, one checkpoint is kept, a resume from it restores the
+    parameters, BatchNorm statistics, velocity and ``global_step`` bit for
+    bit, and ``eval_from_checkpoint`` gives the run's mAP."""
+    _, tc = scripts
+    _tiny_specs(monkeypatch, tc, "RefineDet320")
+    monkeypatch.setattr(tc, "CKPT_EVERY", 1)
+    widths = []
+
+    class Feeder(tc.MemmapFeeder):
+        def __init__(self, images, gt, batch, **kwargs):
+            widths.append(gt.shape[1:])
+            super().__init__(images, gt, batch, **kwargs)
+
+    monkeypatch.setattr(tc, "MemmapFeeder", Feeder)
+    kwargs = dict(root=str(tmp_path), n_train=16, n_test=4, size=(64, 64), device="cpu")
+    result = tc.run_model("RefineDet320", steps_scale=2 / 5000, eval_every=1, **kwargs)
+    run_dir = tmp_path / "torch_runs" / "RefineDet320"
+    assert widths == [(24, 5)]
+    assert json.loads((run_dir / "probe_result.json").read_text()) == result
+    assert result["steps"] == 2 and result["input"] == [64, 64]
+    assert [e["step"] for e in _lines(run_dir / "eval.jsonl")] == [1, 2]
+    assert sorted(p.name for p in run_dir.glob("ckpt-*")) == ["ckpt-2.pt"]
+    assert json.loads((run_dir / "ckpt_meta.json").read_text())["steps"] == 2
+
+    saved = torch.load(run_dir / "ckpt-2.pt", weights_only=True)
+    loaded = []
+    real_load = tc._load_class
+
+    def load_class(path):
+        cls = real_load(path)
+
+        class Recorded(cls):
+            def load_weight(self, prefix):
+                super().load_weight(prefix)
+                loaded.append((dict(self.net.state_dict()), self.velocity,
+                               self.global_step))
+
+        return Recorded
+
+    monkeypatch.setattr(tc, "_load_class", load_class)
+    resumed = tc.run_model("RefineDet320", steps_scale=2 / 5000, resume=True, **kwargs)
+    (state, velocity, step), = loaded
+    assert step == saved["global_step"] == 2 and resumed["steps"] == 2
+    assert state.keys() == saved["state_dict"].keys()
+    assert all(torch.equal(state[k], saved["state_dict"][k]) for k in state)
+    assert any(k.endswith(".mean") for k in state)  # BatchNorm statistics among them
+    assert all(torch.equal(velocity[k], saved["opt_state"]["velocity"][k])
+               for k in saved["opt_state"]["velocity"])
+    assert [c["step"] for c in _lines(run_dir / "curve.jsonl")] == [1, 2]
+
+    salvaged = tc.eval_from_checkpoint("RefineDet320", **kwargs)
+    assert salvaged["mAP@0.5_voc07"] == result["mAP@0.5_voc07"]
+    assert salvaged["per_class_AP"] == result["per_class_AP"]
+    assert salvaged["steps"] == 2 and salvaged["note"].startswith("evaluated from")
+
+
+WATCHDOG = """
+import importlib.util, sys, time
+import numpy as np
+spec = importlib.util.spec_from_file_location("tc", {script!r})
+tc = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tc)
+import tpudet_torch.data.device_dataset as dd
+
+class Feeder:
+    def __init__(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+class Model:
+    def __init__(self, config, provider, device=None):
+        self.epochs = 0
+
+    def train_one_epoch(self, lr):
+        self.epochs += 1
+        if self.epochs > 1:
+            time.sleep(60)  # a stalled device
+        return 1.0
+
+    def save_weight(self, mode, path):
+        pass
+
+images = np.zeros((4, 8, 8, 3), np.uint8)
+gt = -np.ones((4, 60, 5), np.float32)
+tc.synthvoc.build = lambda *a, **k: {root!r}
+tc.synthvoc.load = lambda d: (images, gt, images, gt)
+dd.DeviceDataset = Feeder
+tc._load_class = lambda path: Model
+tc.STALL_CHECK_S = 0.05
+tc.run_model("SSD300", root={root!r}, device="cpu")
+print("the run ended")
+"""
+
+
+def test_the_watchdog_exits_a_stalled_run_with_93(tmp_path):
+    code = WATCHDOG.format(script=str(REPO / "scripts" / "train_convergence_torch.py"),
+                           root=str(tmp_path))
+    env = dict(os.environ, STALL_LIMIT_S="0.5")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 93, proc.stdout + proc.stderr
+    assert "STALLED: no chunk finished in 0s at step 50" in proc.stdout
+    assert "the run ended" not in proc.stdout
