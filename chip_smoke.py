@@ -183,6 +183,17 @@ Phases, each raising on failure (nothing is caught):
      ``global_step`` equal those saved bit for bit and whose appended curve
      equals the run's; ``eval_from_checkpoint`` with the run's mAP; the host
      feed's images/s alone and a profiled step on it.
+ 21. the protocol of the last four families: ``run_model`` of LHRCNN
+     (700x1100, batch 8, the host feed), YOLOv3-consistent (448x448, batch
+     12, resident), CenterNet (384x384, batch 15, Adam, resident) and FCOS
+     (800x1200, batch 8, the host feed at ``gt_pad`` 24), each on 32 train
+     and 8 held-out scenes rendered at its input size, its schedule scaled to
+     6 steps and one evaluation: finite losses; launches by design (LH-RCNN's
+     two NMS pools a step, the others none; in the evaluation two sorted
+     scans an image for LH-RCNN, one for YOLOv3 and FCOS, none for
+     CenterNet, and a per-pick rerun for each pool that runs out); no
+     assignment; every call of either kernel, training's and the
+     evaluation's, == its plain version on its inputs.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -3912,7 +3923,8 @@ def protocol_state(model):
     """The model's parameters and BatchNorm statistics, velocity and
     ``global_step``, copied to the host."""
     return dict(state={k: v.detach().cpu().clone() for k, v in model.net.state_dict().items()},
-                velocity={k: v.detach().cpu().clone() for k, v in model.velocity.items()},
+                velocity={k: v.detach().cpu().clone()
+                          for k, v in (model.velocity or {}).items()},
                 global_step=model.global_step)
 
 
@@ -3960,9 +3972,9 @@ def protocol_hooks(tc, saved, loaded, models):
 
 
 def protocol_spy(captured, evaluations):
-    """Record each training call's inputs of both kernels' wrappers (not
-    those of the evaluations), and the kernels' launches in each call of
-    ``evaluate_model``. Returns the undo."""
+    """Record each call's inputs of both kernels' wrappers as ``(key, args,
+    evaluating)`` (whether ``evaluate_model`` made it), and the kernels'
+    launches in each call of ``evaluate_model``. Returns the undo."""
     from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
     from tpudet_torch.runtime import evaluate
 
@@ -3971,8 +3983,7 @@ def protocol_spy(captured, evaluations):
 
     def spy(key, fn):
         def call(*a):
-            if not state["evaluating"]:
-                captured.append((key, a))
+            captured.append((key, a, state["evaluating"]))
             return fn(*a)
         return call
 
@@ -4066,7 +4077,7 @@ def phase_protocol(dev):
                                   eval_every=PROTOCOL_EVAL_EVERY, **kwargs)
             counts = kernel_counts()
             run_evals = list(evaluations)
-            run_captured = list(captured)
+            run_captured = [(key, a) for key, a, in_eval in captured if not in_eval]
             captured.clear()
             # the resume, from a copy of the run as a cut after its checkpoint
             prefix = str(root / "torch_runs" / PROTOCOL_NAME / "ckpt")
@@ -4198,6 +4209,131 @@ def protocol_record(protocol, key):
         record["eval_launches_by_path"] = {k: protocol["eval_counts"][k]
                                            for k in ("sorted_scan", "per_pick")}
         record.update({k: timing[k] for k in ("shape", "full_shape", "picks")})
+    return record
+
+
+# ------------------------------------- the protocol of the last four families
+# spec: the NMS kernel's sorted scans a training step and an evaluated image
+# by design (a pool that runs out adds a per-pick rerun), and the feed
+FAMILY_SPECS = {"LHRCNN": (2, 2, "host"), "YOLOv3-consistent": (0, 1, "resident"),
+                "CenterNet": (0, 0, "resident"), "FCOS": (0, 1, "host")}
+FAMILY_TRAIN = 32  # rendered synthvoc scenes at each spec's input size
+FAMILY_TEST = 8  # held-out scenes of the one evaluation
+FAMILY_STEPS = 6  # the spec's schedule scaled to 6 steps
+FAMILY_SIZES = {}  # spec name -> an input (h, w) other than the spec's (a rehearsal's)
+
+
+def family_run(tc, name, root: Path):
+    """``run_model(name)`` on ``FAMILY_TRAIN``/``FAMILY_TEST`` rendered scenes,
+    the spec's schedule scaled to ``FAMILY_STEPS`` steps, one evaluation;
+    the counts set to 0 just before it and read just after. Every call of
+    either kernel (training's and the evaluation's) is then held against
+    its plain version; the launches, by design; the feed, the spec's."""
+    import torch
+
+    from tpudet_torch.data.device_dataset import DeviceDataset
+
+    scans_a_step, scans_an_image, feed = FAMILY_SPECS[name]
+    total_steps = tc.model_specs()[name][4]
+    captured, evaluations, models = [], [], []
+    undo_hooks = protocol_hooks(tc, {}, [], models)
+    undo_spy = protocol_spy(captured, evaluations)
+    t = time.perf_counter()
+    try:
+        reset_kernel_counts()
+        # the run takes int(total_steps * steps_scale) steps: + 0.5 against rounding down
+        result = tc.run_model(name, steps_scale=(FAMILY_STEPS + 0.5) / total_steps,
+                              root=str(root), n_train=FAMILY_TRAIN, n_test=FAMILY_TEST,
+                              size=FAMILY_SIZES.get(name))
+        counts = kernel_counts()
+    finally:
+        undo_spy()
+        undo_hooks()
+    seconds = time.perf_counter() - t
+    (model,) = models
+    feeder = model.train_iterator
+    curve = [json.loads(ln) for ln in (root / "torch_runs" / name / "curve.jsonl")
+             .read_text().splitlines()]
+    losses = [c["mean_loss"] for c in curve]
+    (ev,) = evaluations
+    train = {k: counts[k] - ev["counts"][k] for k in counts}
+    steps = result["steps"]
+    if steps != FAMILY_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: {steps} steps, losses {losses}")
+    if not 0.0 <= result["mAP@0.5_voc07"] <= 1.0 or ev["images"] != FAMILY_TEST:
+        raise AssertionError(f"{name}: mAP {result['mAP@0.5_voc07']} on {ev['images']} "
+                             f"images")
+    for what, c, n, scans in (
+            ("training", train, steps, scans_a_step),
+            ("the evaluation", ev["counts"], FAMILY_TEST, scans_an_image)):
+        if (c["assign"] or c["sorted_scan"] != scans * n
+                or c["nms_rows"] != c["sorted_scan"] + c["per_pick"]
+                or (not scans and c["nms_rows"])):
+            raise AssertionError(f"{name}: {what} of {n} launched {c}; by design "
+                                 f"{scans} sorted scans each, no assignment")
+    gt_width = int(feeder.gt.shape[1]) if feed == "host" else None
+    gt_pad = tc.model_specs()[name][2].get("gt_pad", gt_width)
+    if not isinstance(feeder, tc.MemmapFeeder if feed == "host" else DeviceDataset) or (
+            gt_width != gt_pad):
+        raise AssertionError(f"{name} was fed by {type(feeder).__name__} (gt width "
+                             f"{gt_width}), not the spec's {feed} feed (gt_pad {gt_pad})")
+    compared = dp_kernels_vs_plain([(key, a) for key, a, _ in captured])
+    if compared != train["nms_rows"] + ev["counts"]["nms_rows"]:
+        raise AssertionError(f"{name}: {compared} calls captured for {train} and "
+                             f"{ev['counts']}")
+    del models[:], model, feeder
+    torch.cuda.empty_cache()
+    return dict(steps=steps, curve_steps=[c["step"] for c in curve], losses=losses,
+                lrs=[c["lr"] for c in curve], mAP=result["mAP@0.5_voc07"],
+                eval_seconds=result["eval_seconds"],
+                train_images_per_s=result["train_imgs_per_sec"], seconds=seconds,
+                counts=train, eval_counts=ev["counts"], compared=compared,
+                input=result["input"], batch=result["batch"], feed=feed, gt_width=gt_width)
+
+
+def phase_families(dev):
+    """21. ``run_model`` of each newly trained spec (``FAMILY_SPECS``) at its
+    own input size and feed: LH-RCNN from the host feed with its two NMS
+    pools a step, YOLOv3-consistent and CenterNet resident, FCOS from the
+    host feed at ``gt_pad`` 24; a few steps each and one evaluation, every
+    pool and assignment held against its plain version."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tc = protocol_script()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for name in FAMILY_SPECS:
+            run = runs[name] = family_run(tc, name, Path(tmp))
+            log(f"phase 21, {name} ({run['input'][0]}x{run['input'][1]}, batch "
+                f"{run['batch']}, {run['feed']} feed, host gt width {run['gt_width']}) "
+                f"through run_model: {run['steps']} steps (curve {run['curve_steps']}, lr "
+                f"{run['lrs']}, losses {run['losses']}), {run['train_images_per_s']} "
+                f"images/s; training launched {run['counts']}; the evaluation of "
+                f"{FAMILY_TEST} images {run['eval_counts']} in {run['eval_seconds']} s, "
+                f"mAP {run['mAP']}; {run['compared']} calls == plain; "
+                f"{run['seconds']:.1f} s")
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    log(f"phase 21 took {seconds:.1f} s; {card}")
+    return dict(seconds=seconds, runs=runs, card=card)
+
+
+def families_record(families, key):
+    """A kernel's launches in phase 21's runs: each family's training steps
+    and its evaluation (for the NMS kernel, these by design)."""
+    runs = families["runs"]
+    record = {"launches": sum(r["counts"][key] + r["eval_counts"][key]
+                              for r in runs.values())}
+    for name, r in runs.items():
+        record[name] = {"launches": r["counts"][key] + r["eval_counts"][key],
+                        "launches_per_step": r["counts"][key] / r["steps"],
+                        "eval_launches_per_image": r["eval_counts"][key] / FAMILY_TEST}
+        if key == "nms_rows":
+            record[name]["eval_launches_by_path"] = {
+                k: r["eval_counts"][k] for k in ("sorted_scan", "per_pick")}
     return record
 
 
@@ -4339,6 +4475,10 @@ def main() -> int:
     # --eval-every, a periodic checkpoint, --resume, --eval-only
     protocol = phase_protocol(dev)
     log(json.dumps({"protocol": protocol}))
+    # 21. the protocol of the last four families: LH-RCNN, YOLOv3-consistent,
+    # CenterNet and FCOS through run_model at their specs' sizes and feeds
+    families = phase_families(dev)
+    log(json.dumps({"families": families}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -4420,7 +4560,8 @@ def main() -> int:
                       + sum(c["nms_rows"] for c in res_counts)
                       + sum(c["nms_rows"] for c in ep_counts)
                       + sum(c["nms_rows"] for c in dp_counts)
-                      + protocol_record(protocol, "nms_rows")["launches"]),
+                      + protocol_record(protocol, "nms_rows")["launches"]
+                      + families_record(families, "nms_rows")["launches"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -4490,7 +4631,8 @@ def main() -> int:
                                            for k in ("sorted_scan", "per_pick")}},
          "entry_points": entry_point_record(entry_points, "nms_rows"),
          "data_parallel": data_parallel_record(dp, "nms_rows"),
-         "protocol": protocol_record(protocol, "nms_rows")},
+         "protocol": protocol_record(protocol, "nms_rows"),
+         "protocol_families": families_record(families, "nms_rows")},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -4499,7 +4641,8 @@ def main() -> int:
                       + sum(c["assign"] for c in res_counts)
                       + sum(c["assign"] for c in ep_counts)
                       + sum(c["assign"] for c in dp_counts)
-                      + protocol_record(protocol, "assign")["launches"]),
+                      + protocol_record(protocol, "assign")["launches"]
+                      + families_record(families, "assign")["launches"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -4524,7 +4667,8 @@ def main() -> int:
                                             for c in res_counts]},
          "entry_points": entry_point_record(entry_points, "assign"),
          "data_parallel": data_parallel_record(dp, "assign"),
-         "protocol": protocol_record(protocol, "assign")},
+         "protocol": protocol_record(protocol, "assign"),
+         "protocol_families": families_record(families, "assign")},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

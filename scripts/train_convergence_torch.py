@@ -3,14 +3,16 @@ report their held-out VOC07 mAP (the counterpart of
 ``scripts/train_convergence.py``, with its protocol and its 24 specs).
 
 The dataset is ``scripts/synthvoc.py``'s: 5,000 train and 500 held-out
-20-class scenes, rendered once per input size. Each spec is tpudet's: the
-model's config (bf16, uint8 images, flips on the device, weight decay 1e-4,
-nms 0.05 / 40 / 0.45, the family's keys), its input, base lr, steps and
-staircase schedule (the first entry is the warm-up), trained in chunks of 50
-steps (``num_train`` = chunk x batch). Each chunk appends a line to
-``curve.jsonl`` (step, lr, mean loss, images/s, elapsed); a non-finite loss
-stops the run. At the end ``save_weight`` and ``evaluate_model`` on the 500
-held-out scenes write ``result.json`` (``probe_result.json`` under 500 steps).
+20-class scenes, rendered once per input size (from the command line by up
+to 8 processes, byte for byte ``synthvoc.build``'s files). Each spec is
+tpudet's: the model's config (bf16, uint8 images, flips on the device,
+weight decay 1e-4, nms 0.05 / 40 / 0.45, the family's keys), its input, base
+lr, steps and staircase schedule (the first entry is the warm-up), trained
+in chunks of 50 steps (``num_train`` = chunk x batch). Each chunk appends a
+line to ``curve.jsonl`` (step, lr, mean loss, images/s, elapsed); a
+non-finite loss stops the run. At the end ``save_weight`` and
+``evaluate_model`` on the 500 held-out scenes write ``result.json``
+(``probe_result.json`` under 500 steps).
 
 The feed, by the spec's script-only keys (popped before the model is built):
   * ``host_feed``: :class:`MemmapFeeder`, numpy batches from the memmaps,
@@ -75,6 +77,7 @@ CONVERGENCE_ROOT = os.path.join(ROOT, ".convergence")
 CKPT_EVERY = 500  # steps between periodic checkpoints
 STALL_CHECK_S = 60  # the watchdog's check interval
 MID_EVAL_IMAGES = 150  # held-out scenes of each --eval-every point
+RENDER_WORKERS = min(8, os.cpu_count() or 1)  # the command line's render processes
 # the spec keys only this script reads
 SCRIPT_KEYS = ("gt_pad", "host_feed", "chunk_bytes", "rotate_every", "max_bytes")
 
@@ -267,6 +270,62 @@ def _spec(name, size):
     return cls, (h, w), config, base_lr, total_steps, schedule
 
 
+def render_dataset(root, h, w, n_train=synthvoc.N_TRAIN, n_test=synthvoc.N_TEST,
+                   workers=1):
+    """``synthvoc.build``'s dataset at ``h`` x ``w`` under ``root``, byte for
+    byte, its scenes rendered by ``workers`` Python processes, each into its
+    share of the image memmaps (by ``synthvoc.build`` itself for one worker,
+    or when the dataset is there); returns its directory."""
+    d = os.path.join(root, f"{h}x{w}")
+    if workers > 1 and not os.path.exists(os.path.join(d, "DONE")):
+        import subprocess
+
+        os.makedirs(d, exist_ok=True)
+        for split, n in (("train", n_train), ("test", n_test)):  # the headers
+            np.lib.format.open_memmap(os.path.join(d, f"{split}_images.npy"), mode="w+",
+                                      dtype=np.uint8, shape=(n, h, w, 3)).flush()
+        n = n_train + n_test
+        cuts = [n * k // workers for k in range(workers + 1)]
+        code = (f"import sys; sys.path[:0] = {[os.path.dirname(__file__)]!r}; "
+                f"import train_convergence_torch as tc; tc._render_part(*sys.argv[1:])")
+        procs = [subprocess.Popen([sys.executable, "-c", code, d, str(h), str(w),
+                                   str(n_train), str(n_test), str(a), str(b)])
+                 for a, b in zip(cuts, cuts[1:])]
+        if any(p.wait() for p in procs):
+            raise RuntimeError(f"a render process failed: {[p.returncode for p in procs]}")
+        gt = np.concatenate([np.load(os.path.join(d, f"gt_{a}.npy")) for a in cuts[:-1]])
+        np.save(os.path.join(d, "train_gt.npy"), gt[:n_train])
+        np.save(os.path.join(d, "test_gt.npy"), gt[n_train:])
+        for a in cuts[:-1]:
+            os.unlink(os.path.join(d, f"gt_{a}.npy"))
+        with open(os.path.join(d, "DONE"), "w") as f:
+            f.write("ok")
+    return synthvoc.build(root, h, w, n_train=n_train, n_test=n_test)
+
+
+def _render_part(d, h, w, n_train, n_test, start, stop):
+    """One render process of :func:`render_dataset`: scenes ``start:stop`` of
+    the train-then-test order into the memmaps, their gt rows (train as
+    ``[yc, xc, h, w, cid]``, test as corners, as ``synthvoc.build`` keeps
+    them) into ``gt_{start}.npy``."""
+    h, w, n_train, n_test, start, stop = map(int, (h, w, n_train, n_test, start, stop))
+    specs = synthvoc.scene_specs(np.random.default_rng(7), n_train + n_test)  # build's seed
+    images = {split: np.load(os.path.join(d, f"{split}_images.npy"), mmap_mode="r+")
+              for split in ("train", "test")}
+    gt = np.full((stop - start, synthvoc.MAX_OBJ, 5), -1.0, np.float32)
+    for i in range(start, stop):
+        image, boxes = synthvoc.render_scene(specs[i], h, w)
+        if i < n_train:
+            images["train"][i] = image
+            boxes = synthvoc._corner_to_center(boxes)
+        else:
+            images["test"][i - n_train] = image
+        gt[i - start, :len(boxes)] = boxes
+    for m in images.values():
+        m.flush()
+    np.save(os.path.join(d, f"gt_{start}.npy"), gt)
+
+
 def _write_meta(run_dir, steps, elapsed):
     with open(os.path.join(run_dir, "ckpt_meta.json"), "w") as f:
         json.dump({"steps": steps, "elapsed_s": round(elapsed, 1)}, f)
@@ -296,13 +355,15 @@ def _scores(mAP, aps):
 def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
               resume: bool = False, eval_every: int = 0,
               root: str = CONVERGENCE_ROOT, n_train: int = synthvoc.N_TRAIN,
-              n_test: int = synthvoc.N_TEST, size=None, device=None):
+              n_test: int = synthvoc.N_TEST, size=None, device=None,
+              render_workers: int = 1):
     """Train and evaluate ``name``; returns the result's dict.
 
     ``root`` holds ``data/`` (the rendered dataset) and ``torch_runs/``;
     ``n_train``/``n_test`` are the dataset's scenes, ``size`` an input
     ``(h, w)`` other than the spec's, ``device`` the model's and the
-    dataset's (None: the card)."""
+    dataset's (None: the card), ``render_workers`` the processes that
+    render a dataset not yet there."""
     from tpudet_torch import device as device_lib
     from tpudet_torch.data.device_dataset import DeviceDataset
 
@@ -319,7 +380,7 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
 
     print(f"[{name}] rendering/loading dataset at {h}x{w} ...", flush=True)
     t_data = time.time()
-    d = synthvoc.build(os.path.join(root, "data"), h, w, n_train=n_train, n_test=n_test)
+    d = render_dataset(os.path.join(root, "data"), h, w, n_train, n_test, render_workers)
     train_images, train_gt, _, _ = synthvoc.load(d)
     print(f"[{name}] dataset ready in {time.time() - t_data:.1f} s", flush=True)
 
@@ -525,7 +586,8 @@ def main(argv=None):
                 results.append(eval_from_checkpoint(name))
                 continue
             results.append(run_model(name, steps_scale=scale, smoke="--smoke" in argv,
-                                     resume="--resume" in argv, eval_every=eval_every))
+                                     resume="--resume" in argv, eval_every=eval_every,
+                                     render_workers=RENDER_WORKERS))
         except Exception as e:  # keep the queue going; record the failure
             import traceback
 

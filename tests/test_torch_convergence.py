@@ -15,6 +15,7 @@ feed and ``gt_pad``, 16 train and 4 test scenes, 2 steps, batch 4 (the specs'
 a step).
 """
 
+import importlib
 import importlib.util
 import json
 import os
@@ -34,7 +35,7 @@ import tpudet_torch.data.device_dataset as t_device_dataset
 import tpudet_torch.runtime.evaluate as t_evaluate
 from tpudet.heads import refine as jax_refine
 from tpudet_torch.heads import refine as t_refine
-from tpudet_torch.models.refinedet import _refine_feat_shapes
+from tpudet_torch.models.refinedet import PFPNetR, _refine_feat_shapes
 from torch_refine_common import gt_rows
 
 torch.set_num_threads(1)
@@ -316,6 +317,51 @@ def test_main_runs_each_family_and_fails_unless_all_have_an_map(monkeypatch, cap
 
 
 # ------------------------------------------------------------- the pieces
+def test_the_variants_differ_from_their_spec_only_where_named(monkeypatch):
+    """``scripts/convergence_variants_torch.py``: every spec and its
+    ``-seed1`` (config seed 1, nothing else), PFPNetR in float32 over the
+    spec's first 2000 steps (250 warm-up at 0.1x, 1750 at the base lr), and
+    PFPNetR from tpudet's initial weights (the spec with the port's
+    subclass that loads them)."""
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    variants = importlib.import_module("convergence_variants_torch")
+    specs, base = variants.model_specs(), variants.tc.model_specs()
+    assert set(specs) == set(base) | {n + "-seed1" for n in base} | {
+        "PFPNetR-fp32-2000", "PFPNetR-tpudet-init"}
+    for name, spec in base.items():
+        seeded = specs[name + "-seed1"]
+        assert seeded[2] == dict(spec[2], seed=1)
+        assert seeded[:2] + seeded[3:] == spec[:2] + spec[3:]
+    pfp = base["PFPNetR"]
+    fp32 = specs["PFPNetR-fp32-2000"]
+    assert fp32[2] == dict(pfp[2], compute_dtype="float32") and fp32[4] == 2000
+    warm, full = (max(1, int(round(2000 * f))) for f, _ in fp32[5])
+    assert (warm, full) == (250, 1750) and [m for _, m in fp32[5]] == [0.1, 1.0]
+    assert round(pfp[4] * pfp[5][0][0]) == warm and pfp[5][1][1] == 1.0
+    init = specs["PFPNetR-tpudet-init"]
+    assert init[1:] == pfp[1:]
+    cls = variants.tc._load_class(init[0])
+    assert cls is variants.PFPNetRFromTpudetInit and issubclass(cls, PFPNetR)
+
+
+def test_the_parallel_render_is_synthvoc_build_byte_for_byte(tmp_path, scripts):
+    """Two render processes write ``synthvoc.build``'s five files,
+    byte for byte (12 train and 5 test scenes at 24x40); a second call finds
+    the dataset there and renders nothing."""
+    _, tc = scripts
+    want = tc.synthvoc.build(str(tmp_path / "one"), 24, 40, n_train=12, n_test=5)
+    got = tc.render_dataset(str(tmp_path / "two"), 24, 40, 12, 5, workers=2)
+    assert got == str(tmp_path / "two" / "24x40")
+    names = sorted(os.listdir(want))
+    assert names == sorted(os.listdir(got)) == sorted(
+        ["DONE", "test_gt.npy", "test_images.npy", "train_gt.npy", "train_images.npy"])
+    for name in names:
+        assert Path(got, name).read_bytes() == Path(want, name).read_bytes(), name
+    stamp = os.stat(Path(got, "train_images.npy")).st_mtime_ns
+    tc.render_dataset(str(tmp_path / "two"), 24, 40, 12, 5, workers=2)
+    assert os.stat(Path(got, "train_images.npy")).st_mtime_ns == stamp
+
+
 def test_memmap_feeder_batches_equal_tpudets_and_close_stops_it(scripts):
     """Seed 1, 40 rows at batch 8: twelve batches, so across two reshuffles."""
     jax_tc, tc = scripts

@@ -20,7 +20,7 @@ from tpudet_torch.heads import refine as t_refine
 from tpudet_torch.models import PFPNetR
 from tpudet_torch.nn import layers as t_layers
 from tpudet_torch.runtime import transfer
-from torch_refine_common import (check_eval_forward, check_test_one_image,
+from torch_refine_common import (check_eval_forward, check_grads, check_test_one_image,
                                  check_tpudet_file, check_train_step, config, nchw, nhwc,
                                  port_model, rel, tpudet_pair)
 
@@ -124,6 +124,28 @@ def test_train_step_matches_tpudet_and_moves_the_unused_conv5(pair):
         expect = p0[k] - 0.01 * (0.9 * v0[k] + 1e-4 * p0[k])
         np.testing.assert_allclose(got[k].numpy(), expect.numpy(), rtol=1e-6, atol=1e-9)
         assert not torch.equal(got[k], p0[k])
+
+
+def _pyramid_key(name):
+    """A kernel or BatchNorm scale of the MSCA pyramid (``fl*``, ``up*``), or
+    one of the two L2-norm scales; not the conv biases before a BatchNorm,
+    whose gradient is zero in exact arithmetic."""
+    parts = name.split(".")
+    if parts[0] != "feature_extractor":
+        return False
+    if parts[1] in ("feat1_l2_norm", "feat2_l2_norm"):
+        return True
+    return (parts[1].startswith(("fl", "up"))
+            and parts[2:] in (["conv", "weight"], ["dconv", "weight"], ["bn", "scale"]))
+
+
+def test_pyramid_gradients_match_tpudet_per_tensor():
+    """float32 at 128x128, batch 4 (the top level 2x2): the loss's gradient
+    of every pyramid kernel and BatchNorm scale and of both L2 scales, each
+    held on its own against tpudet's (``check_grads``): 16 ConvBNs, 6
+    deconvolutions, 2 scales."""
+    held = check_grads(JaxPFPNet, PFPNetR, _pyramid_key)
+    assert len(held) == 2 * 16 + 2 * 6 + 2
 
 
 def test_tpudet_checkpoint_loads_into_the_port(tmp_path, pair):

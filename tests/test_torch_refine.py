@@ -31,9 +31,9 @@ from tpudet_torch.ops import matching as t_matching
 from tpudet_torch.ops import nms as t_nms
 from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 from tpudet_torch.runtime import transfer
-from torch_refine_common import (batch, check_eval_forward, check_test_one_image,
-                                 check_tpudet_file, check_train_step, config, gt_rows,
-                                 nchw, nhwc, random_stats, rel, tpudet_pair)
+from torch_refine_common import (batch, check_eval_forward, check_grads,
+                                 check_test_one_image, check_tpudet_file, check_train_step,
+                                 config, gt_rows, nchw, nhwc, random_stats, rel, tpudet_pair)
 
 torch.set_num_threads(1)
 
@@ -296,6 +296,26 @@ def test_train_step_matches_tpudet(pair):
     launches = (assign_kernel.launches, nms_kernel.launches)
     check_train_step(jm, RefineDet320, variables)
     assert (assign_kernel.launches, nms_kernel.launches) == launches  # CPU: plain
+
+
+def _tcb_key(name):
+    """A kernel or BatchNorm scale of a TCB (their deconvolutions included),
+    or one of the two L2-norm scales; not the conv biases before a
+    BatchNorm."""
+    parts = name.split(".")
+    if parts[0] == "feature_extractor":
+        return parts[1] in ("feat1_l2_norm", "feat2_l2_norm")
+    return (parts[0].startswith("tcb")
+            and parts[2:] in (["conv", "weight"], ["dconv", "weight"], ["bn", "scale"]))
+
+
+def test_tcb_gradients_match_tpudet_per_tensor():
+    """float32 at 128x128, batch 4 (levels 16/8/4/2): the loss's gradient of
+    every TCB kernel and BatchNorm scale and of both L2 scales, each held on
+    its own against tpudet's (``check_grads``): 8 ConvBNs, 3 deconvolutions,
+    2 scales."""
+    held = check_grads(JaxRefineDet, RefineDet320, _tcb_key)
+    assert len(held) == 2 * 8 + 2 * 3 + 2
 
 
 def test_tpudet_checkpoint_loads_into_the_port(tmp_path, pair):

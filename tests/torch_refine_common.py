@@ -25,7 +25,17 @@ Tolerances, each with its reason:
     the parameters and velocity after the step (normwise over the tree), are
     held to 4x what that perturbation does to the port itself, and to 1e-4
     where that is larger. The velocity starts non-zero, as in
-    ``tests/test_torch_train.py``.
+    ``tests/test_torch_train.py``;
+  * per-tensor float32 gradients of the loss at 128x128, batch 4
+    (:func:`check_grads`): each held to 4x the larger of two moves of the
+    port's own gradient, its other summation order (oneDNN off) and images
+    changed by 2^-22 relative. A few pre-activations a net lie within ~1e-6
+    of zero, and a rounding flips one ReLU's mask: that moves the pyramid's
+    and the TCBs' gradients by ~0.5% (PFPNet), ~2% (RefineDet). Which one
+    flips depends on the order of every sum before it, so each side flips
+    its own: tpudet's gradient is as far from the port's as either move,
+    and the order switch alone (it changes the convolutions', not the
+    BatchNorms', sums) sometimes flips none.
 """
 
 import jax
@@ -203,6 +213,66 @@ def jax_step(jm, params, bstats, velocity, images, gt, lr, wd):
         return loss, new_p, stats, new_opt.velocity, outputs
 
     return jax.device_get(jax.jit(step)(params, bstats, velocity))
+
+
+def check_grads(jax_cls, port_cls, keys, size=128, b=4):
+    """The float32 gradient of the loss (no weight decay) of tpudet's
+    ``jax.grad`` and the port's ``autograd.grad`` from the same numpy
+    variables at ``size`` x ``size``, batch ``b``: the loss to 1e-5, and
+    each parameter whose name ``keys`` accepts held on its own to the
+    module docstring's tolerance (norms of differences, so that a gradient
+    that cancels to near zero is held to the port's own scatter, not to its
+    size). Returns the names held."""
+    rng = np.random.default_rng(0)
+
+    class Seeded(jax_cls):
+        def _init_variables(self):
+            variables = numpy_variables(self.net, rng, hw=(size, size))
+            self.params, self.batch_stats = variables["params"], variables["batch_stats"]
+            self._optimizer = self._make_optimizer()
+            self.opt_state = None
+
+    jm = Seeded(config(mode="test", input_size=size, batch_size=b))
+    variables = {"params": jax.device_get(jm.params),
+                 "batch_stats": jax.device_get(jm.batch_stats)}
+    images, gt = batch(5, b=b, size=size)
+
+    def jax_loss(p, s):
+        x = jnp.asarray(images) - PIXEL_MEAN.reshape(1, 1, 1, 3)
+        outputs, _ = jm.net.apply({"params": p, "batch_stats": s}, x, True,
+                                  mutable=["batch_stats"])
+        return jm._loss_from_outputs(outputs, jnp.asarray(gt), None)
+
+    w_loss, w_grads = jax.device_get(jax.jit(jax.value_and_grad(jax_loss))(
+        variables["params"], variables["batch_stats"]))
+    want = transfer.from_flax({"params": w_grads})
+    pm = port_model(port_cls, variables, input_size=size, batch_size=b)
+    x, g = pm._to_device(images, gt)
+
+    def port_grads(x):
+        transfer.load_flax(pm.net, variables)
+        pm.net.train()
+        params = dict(pm.net.named_parameters())
+        loss = pm._loss_from_outputs(pm.net(pm._preprocess(x)), g, pm._sample_weight())
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        return float(loss.detach()), {  # VGG block 5 is unused: no gradient
+            k: torch.zeros_like(p) if gr is None else gr
+            for (k, p), gr in zip(params.items(), grads)}
+
+    loss, got = port_grads(x)
+    with torch.backends.mkldnn.flags(enabled=False):  # the other summation order
+        _, got_order = port_grads(x)
+    _, got_input = port_grads(x * (1 + 2.0 ** -22))
+    np.testing.assert_allclose(loss, float(w_loss), rtol=1e-5)
+    held = [k for k in got if keys(k)]
+    for k in held:
+        mine = got[k].double()
+        moves = [float(torch.linalg.vector_norm(o[k].double() - mine))
+                 for o in (got_order, got_input)]
+        err = float(torch.linalg.vector_norm(mine - want[k].double()))
+        bound = max(4 * max(moves), 1e-6 * float(torch.linalg.vector_norm(mine)))
+        assert err < bound, f"{k}: |port - tpudet| {err:.3e}, bound {bound:.3e} {moves}"
+    return held
 
 
 def tree_rel(got, want):
