@@ -194,6 +194,18 @@ Phases, each raising on failure (nothing is caught):
      CenterNet, and a per-pick rerun for each pool that runs out); no
      assignment; every call of either kernel, training's and the
      evaluation's, == its plain version on its inputs.
+ 22. the carry copy and the remaining specs' protocol paths: CenterNet through
+     ``run_model`` (384x384, batch 15, 4 steps), then
+     ``scripts/convergence_variants_torch.py::carry_state`` of its net
+     (kernels rounded to bfloat16, the 1-D leaves float32) written, read
+     back into a freshly built CenterNet, whose decodes of 8 held-out scenes
+     equal the trained net's bit for bit; then ``run_model`` of YOLOv3 (the
+     quirk-faithful decode, 448x448, batch 12), YOLOv2-consistent (480x480,
+     batch 32), both resident, and RefineDet320-pad60 (320x320, batch 32,
+     the host feed at the full gt width 60, the split augmentation), as
+     phase 21 runs its four: launches by design (RefineDet320-pad60 one
+     assignment at G = 60 and one mining pool a step; in the evaluation one
+     sorted scan an image), every call == its plain version.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -3909,14 +3921,19 @@ PROTOCOL_FEED_BATCHES = 10  # batches of the host feed timed alone
 PROTOCOL_GT_PAD = 24
 
 
-def protocol_script():
+def load_script(name: str):
+    """``scripts/{name}.py`` as a module of its own (``_{name}``)."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "scripts" / "train_convergence_torch.py"
-    spec = importlib.util.spec_from_file_location("_train_convergence_torch", path)
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def protocol_script():
+    return load_script("train_convergence_torch")
 
 
 def protocol_state(model):
@@ -4213,10 +4230,18 @@ def protocol_record(protocol, key):
 
 
 # ------------------------------------- the protocol of the last four families
-# spec: the NMS kernel's sorted scans a training step and an evaluated image
-# by design (a pool that runs out adds a per-pick rerun), and the feed
-FAMILY_SPECS = {"LHRCNN": (2, 2, "host"), "YOLOv3-consistent": (0, 1, "resident"),
-                "CenterNet": (0, 0, "resident"), "FCOS": (0, 1, "host")}
+# spec: the assignment kernel's launches a training step, the NMS kernel's
+# sorted scans a training step and an evaluated image by design (a pool that
+# runs out adds a per-pick rerun), and the feed; phase 21 runs the first
+# four, phase 22 the rest
+FAMILY_SPECS = {"LHRCNN": (0, 2, 2, "host"), "YOLOv3-consistent": (0, 0, 1, "resident"),
+                "CenterNet": (0, 0, 0, "resident"), "FCOS": (0, 0, 1, "host"),
+                "YOLOv3": (0, 0, 1, "resident"), "YOLOv2-consistent": (0, 0, 1, "resident"),
+                "RefineDet320-pad60": (1, 1, 1, "host")}
+PHASE21_SPECS = ("LHRCNN", "YOLOv3-consistent", "CenterNet", "FCOS")
+PHASE22_SPECS = ("YOLOv3", "YOLOv2-consistent", "RefineDet320-pad60")
+CARRY_SPEC = "CenterNet"
+CARRY_STEPS = 4  # CenterNet's schedule scaled to 4 steps before its carry copy
 FAMILY_TRAIN = 32  # rendered synthvoc scenes at each spec's input size
 FAMILY_TEST = 8  # held-out scenes of the one evaluation
 FAMILY_STEPS = 6  # the spec's schedule scaled to 6 steps
@@ -4233,7 +4258,7 @@ def family_run(tc, name, root: Path):
 
     from tpudet_torch.data.device_dataset import DeviceDataset
 
-    scans_a_step, scans_an_image, feed = FAMILY_SPECS[name]
+    assigns_a_step, scans_a_step, scans_an_image, feed = FAMILY_SPECS[name]
     total_steps = tc.model_specs()[name][4]
     captured, evaluations, models = [], [], []
     undo_hooks = protocol_hooks(tc, {}, [], models)
@@ -4263,14 +4288,14 @@ def family_run(tc, name, root: Path):
     if not 0.0 <= result["mAP@0.5_voc07"] <= 1.0 or ev["images"] != FAMILY_TEST:
         raise AssertionError(f"{name}: mAP {result['mAP@0.5_voc07']} on {ev['images']} "
                              f"images")
-    for what, c, n, scans in (
-            ("training", train, steps, scans_a_step),
-            ("the evaluation", ev["counts"], FAMILY_TEST, scans_an_image)):
-        if (c["assign"] or c["sorted_scan"] != scans * n
+    for what, c, n, assigns, scans in (
+            ("training", train, steps, assigns_a_step, scans_a_step),
+            ("the evaluation", ev["counts"], FAMILY_TEST, 0, scans_an_image)):
+        if (c["assign"] != assigns * n or c["sorted_scan"] != scans * n
                 or c["nms_rows"] != c["sorted_scan"] + c["per_pick"]
                 or (not scans and c["nms_rows"])):
             raise AssertionError(f"{name}: {what} of {n} launched {c}; by design "
-                                 f"{scans} sorted scans each, no assignment")
+                                 f"{scans} sorted scans and {assigns} assignments each")
     gt_width = int(feeder.gt.shape[1]) if feed == "host" else None
     gt_pad = tc.model_specs()[name][2].get("gt_pad", gt_width)
     if not isinstance(feeder, tc.MemmapFeeder if feed == "host" else DeviceDataset) or (
@@ -4278,7 +4303,7 @@ def family_run(tc, name, root: Path):
         raise AssertionError(f"{name} was fed by {type(feeder).__name__} (gt width "
                              f"{gt_width}), not the spec's {feed} feed (gt_pad {gt_pad})")
     compared = dp_kernels_vs_plain([(key, a) for key, a, _ in captured])
-    if compared != train["nms_rows"] + ev["counts"]["nms_rows"]:
+    if compared != train["nms_rows"] + train["assign"] + ev["counts"]["nms_rows"]:
         raise AssertionError(f"{name}: {compared} calls captured for {train} and "
                              f"{ev['counts']}")
     del models[:], model, feeder
@@ -4291,12 +4316,13 @@ def family_run(tc, name, root: Path):
                 input=result["input"], batch=result["batch"], feed=feed, gt_width=gt_width)
 
 
-def phase_families(dev):
+def phase_families(dev, names=PHASE21_SPECS, phase=21):
     """21. ``run_model`` of each newly trained spec (``FAMILY_SPECS``) at its
     own input size and feed: LH-RCNN from the host feed with its two NMS
     pools a step, YOLOv3-consistent and CenterNet resident, FCOS from the
     host feed at ``gt_pad`` 24; a few steps each and one evaluation, every
-    pool and assignment held against its plain version."""
+    pool and assignment held against its plain version. Phase 22 runs
+    ``PHASE22_SPECS`` the same way."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -4305,9 +4331,9 @@ def phase_families(dev):
     build.mkdir(exist_ok=True)
     runs = {}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        for name in FAMILY_SPECS:
+        for name in names:
             run = runs[name] = family_run(tc, name, Path(tmp))
-            log(f"phase 21, {name} ({run['input'][0]}x{run['input'][1]}, batch "
+            log(f"phase {phase}, {name} ({run['input'][0]}x{run['input'][1]}, batch "
                 f"{run['batch']}, {run['feed']} feed, host gt width {run['gt_width']}) "
                 f"through run_model: {run['steps']} steps (curve {run['curve_steps']}, lr "
                 f"{run['lrs']}, losses {run['losses']}), {run['train_images_per_s']} "
@@ -4317,8 +4343,84 @@ def phase_families(dev):
                 f"{run['seconds']:.1f} s")
     seconds = time.perf_counter() - t0
     card = card_line()
-    log(f"phase 21 took {seconds:.1f} s; {card}")
+    log(f"phase {phase} took {seconds:.1f} s; {card}")
     return dict(seconds=seconds, runs=runs, card=card)
+
+
+def carry_run(tc, root: Path):
+    """``run_model(CARRY_SPEC)`` for ``CARRY_STEPS`` steps on
+    ``FAMILY_TRAIN``/``FAMILY_TEST`` rendered scenes, its net's
+    ``carry_state`` written and read back into a freshly built model; the
+    decodes of the held-out scenes by both, each output equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.runtime import evaluate
+
+    carry_state = load_script("convergence_variants_torch").carry_state
+    models = []
+    undo = protocol_hooks(tc, {}, [], models)
+    t = time.perf_counter()
+    try:
+        total_steps = tc.model_specs()[CARRY_SPEC][4]
+        result = tc.run_model(CARRY_SPEC, steps_scale=(CARRY_STEPS + 0.5) / total_steps,
+                              root=str(root), n_train=FAMILY_TRAIN, n_test=FAMILY_TEST,
+                              size=FAMILY_SIZES.get(CARRY_SPEC))
+    finally:
+        undo()
+    (trained,) = models
+    path = root / "carry.pt"
+    torch.save(carry_state(trained.net.state_dict()), path)
+    carry = torch.load(path, map_location="cpu")
+    kinds = {k: str(v.dtype) for k, v in carry.items()}
+    if any(kinds[k] != ("torch.bfloat16" if v.dim() >= 2 else "torch.float32")
+           for k, v in carry.items()):
+        raise AssertionError(f"carry copy leaves of the wrong type: {kinds}")
+    cls, (h, w), config, _, _, _ = tc._spec(CARRY_SPEC, FAMILY_SIZES.get(CARRY_SPEC))
+    for k in tc.SCRIPT_KEYS:
+        config.pop(k, None)
+    provider = {"data_shape": [h, w, 3], "num_train": config["batch_size"], "num_val": 0,
+                "train_generator": iter(()), "val_generator": None}
+    fresh = cls(config, provider)
+    fresh.net.load_state_dict(carry, strict=True)
+    d = tc.synthvoc.build(str(root / "data"), h, w, n_train=FAMILY_TRAIN, n_test=FAMILY_TEST)
+    equal, detections = 0, 0
+    for image, _ in list(tc.synthvoc.test_records(d))[:FAMILY_TEST]:
+        inp, _ = evaluate.eval_preprocess(image, h, w)
+        want, got = trained.test_one_image(inp[None]), fresh.test_one_image(inp[None])
+        if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"the carry copy's decode differs from the trained net's: "
+                                 f"{got} against {want}")
+        equal += 1
+        detections += len(want[0])
+    steps = result["steps"]
+    del models[:], trained, fresh
+    torch.cuda.empty_cache()
+    return dict(steps=steps, seconds=time.perf_counter() - t, images_equal=equal,
+                detections=detections, mAP=result["mAP@0.5_voc07"],
+                carry_mib=path.stat().st_size / 2**20,
+                bf16_leaves=sum(v == "torch.bfloat16" for v in kinds.values()),
+                f32_leaves=sum(v == "torch.float32" for v in kinds.values()))
+
+
+def phase_carry_and_specs(dev):
+    """22. The carry copy of a trained CenterNet decodes as the trained net,
+    bit for bit (:func:`carry_run`); then ``PHASE22_SPECS`` through
+    :func:`phase_families`."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        carry = carry_run(protocol_script(), Path(tmp))
+    log(f"phase 22, {CARRY_SPEC}'s carry copy after {carry['steps']} steps: "
+        f"{carry['carry_mib']:.1f} MiB, {carry['bf16_leaves']} bfloat16 and "
+        f"{carry['f32_leaves']} float32 leaves; the decodes of {carry['images_equal']} "
+        f"held-out scenes ({carry['detections']} detections) == the trained net's bit for "
+        f"bit; {carry['seconds']:.1f} s")
+    families = phase_families(dev, PHASE22_SPECS, 22)
+    return dict(seconds=time.perf_counter() - t0, carry=carry, families=families)
 
 
 def families_record(families, key):
@@ -4479,6 +4581,10 @@ def main() -> int:
     # CenterNet and FCOS through run_model at their specs' sizes and feeds
     families = phase_families(dev)
     log(json.dumps({"families": families}))
+    # 22. the carry copy on the card, and the remaining specs: YOLOv3 (the
+    # quirk-faithful decode), YOLOv2-consistent, RefineDet320-pad60
+    phase22 = phase_carry_and_specs(dev)
+    log(json.dumps({"carry_and_specs": phase22}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -4561,7 +4667,8 @@ def main() -> int:
                       + sum(c["nms_rows"] for c in ep_counts)
                       + sum(c["nms_rows"] for c in dp_counts)
                       + protocol_record(protocol, "nms_rows")["launches"]
-                      + families_record(families, "nms_rows")["launches"]),
+                      + families_record(families, "nms_rows")["launches"]
+                      + families_record(phase22["families"], "nms_rows")["launches"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -4632,7 +4739,8 @@ def main() -> int:
          "entry_points": entry_point_record(entry_points, "nms_rows"),
          "data_parallel": data_parallel_record(dp, "nms_rows"),
          "protocol": protocol_record(protocol, "nms_rows"),
-         "protocol_families": families_record(families, "nms_rows")},
+         "protocol_families": families_record(families, "nms_rows"),
+         "protocol_phase22": families_record(phase22["families"], "nms_rows")},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -4642,7 +4750,8 @@ def main() -> int:
                       + sum(c["assign"] for c in ep_counts)
                       + sum(c["assign"] for c in dp_counts)
                       + protocol_record(protocol, "assign")["launches"]
-                      + families_record(families, "assign")["launches"]),
+                      + families_record(families, "assign")["launches"]
+                      + families_record(phase22["families"], "assign")["launches"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -4668,7 +4777,8 @@ def main() -> int:
          "entry_points": entry_point_record(entry_points, "assign"),
          "data_parallel": data_parallel_record(dp, "assign"),
          "protocol": protocol_record(protocol, "assign"),
-         "protocol_families": families_record(families, "assign")},
+         "protocol_families": families_record(families, "assign"),
+         "protocol_phase22": families_record(phase22["families"], "assign")},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -6,16 +6,25 @@ script has none):
     weights and augmentation key; the feed's order is the spec's);
   * ``PFPNetR-fp32-2000``: PFPNetR in float32, the spec's first 2000 steps
     (its 250 warm-up steps at 0.1x, then 1750 at the base lr);
-  * ``PFPNetR-tpudet-init``: PFPNetR from flax's own initial variables of
-    tpudet's spec (``INIT``, written by ``tests/torch_flax_init.py``),
-    appending ``weight_decay * global_l2`` after each chunk to
-    ``wd_l2.jsonl`` in the run's directory.
+  * ``SPEC-tpudet-init``: the spec from flax's own initial variables of
+    tpudet's spec (:func:`init_path`, written by ``python
+    tests/torch_flax_init.py SPEC``), appending ``weight_decay * global_l2``
+    after each chunk to ``wd_l2.jsonl`` in the run's directory; at its end
+    the run's carry copy (below) is written.
+
+A carry copy is a trained net small enough to bring back from the card:
+:func:`carry_state` of the final checkpoint's ``state_dict``, written to
+``carry.pt`` in the run's directory at the end of every ``*-tpudet-init``
+run, and of every run named with ``--carry``. In a bfloat16 run every
+kernel is cast to bfloat16 (round to nearest even) before it is used, so
+the copy computes bit for bit what the trained net computes.
 
 Usage (from the root of a checkout, on the card):
-  python scripts/convergence_variants_torch.py NAME [--eval-every=N ...]
+  python scripts/convergence_variants_torch.py NAME [--eval-every=N ...] [--carry]
 The records go under ``.convergence/torch_runs/NAME/``, as the script's.
 """
 
+import functools
 import json
 import os
 import sys
@@ -25,28 +34,73 @@ import torch  # noqa: E402
 
 import train_convergence_torch as tc  # noqa: E402
 from tpudet_torch.models.base import global_l2  # noqa: E402
-from tpudet_torch.models.refinedet import PFPNetR  # noqa: E402
+from tpudet_torch.runtime import checkpoint as ckpt  # noqa: E402
 
-INIT = os.path.join(tc.ROOT, "build", "pfpnet_tpudet_init.pt")
+INIT_SUFFIX = "-tpudet-init"
+CARRY = "carry.pt"
 
 
-class PFPNetRFromTpudetInit(PFPNetR):
-    """PFPNetR whose initial parameters and statistics are ``INIT``'s."""
+def init_path(spec: str) -> str:
+    """``build/<spec>_tpudet_init.pt`` (PFPNetR's keeps its first name,
+    ``build/pfpnet_tpudet_init.pt``)."""
+    stem = "pfpnet" if spec == "PFPNetR" else spec
+    return os.path.join(tc.ROOT, "build", f"{stem}_tpudet_init.pt")
+
+
+def carry_state(state_dict):
+    """``state_dict`` with every floating leaf of two or more dimensions
+    (conv and dense kernels) rounded to bfloat16; the 1-D leaves (biases,
+    BatchNorm's scale, bias and statistics) stay float32."""
+    return {k: v.detach().to(torch.bfloat16)
+            if v.is_floating_point() and v.dim() >= 2 else v.detach()
+            for k, v in state_dict.items()}
+
+
+def write_carry(name: str, root: str = tc.CONVERGENCE_ROOT) -> str:
+    """The carry copy of run ``name``'s newest checkpoint, to its directory."""
+    run_dir = os.path.join(root, "torch_runs", name)
+    blob = ckpt.load_state(ckpt.resolve(os.path.join(run_dir, "ckpt")))
+    out = os.path.join(run_dir, CARRY)
+    torch.save(carry_state(blob["state_dict"]), out)
+    print(f"[{name}] carry copy of step {blob['global_step']}: {out} "
+          f"({os.path.getsize(out) / 2**20:.1f} MiB)", flush=True)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def from_tpudet_init(spec: str):
+    """The class of ``spec`` whose initial parameters and statistics are
+    :func:`init_path`'s, loaded strictly, and whose epochs log
+    ``weight_decay * global_l2``."""
+    base = tc._load_class(_base_specs()[spec][0])
+    run = spec + INIT_SUFFIX
 
     def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.net.load_state_dict(torch.load(INIT, map_location=self.device))
-        self.l2_log = os.path.join(tc.CONVERGENCE_ROOT, "torch_runs", "PFPNetR-tpudet-init",
-                                   "wd_l2.jsonl")
+        base.__init__(self, *args, **kwargs)
+        state = torch.load(init_path(spec), map_location=self.device)
+        self.net.load_state_dict(state, strict=True)
+        self.l2_log = os.path.join(tc.CONVERGENCE_ROOT, "torch_runs", run, "wd_l2.jsonl")
 
     def train_one_epoch(self, lr, writer=None):
-        out = super().train_one_epoch(lr, writer)
+        out = base.train_one_epoch(self, lr, writer)
         with torch.no_grad():
             term = self.weight_decay * float(global_l2(self.net.parameters()))
+        os.makedirs(os.path.dirname(self.l2_log), exist_ok=True)
         with open(self.l2_log, "a") as f:
             f.write(json.dumps({"step": self.global_step, "wd_l2": round(term, 5),
                                 "mean_loss": round(float(out), 5)}) + "\n")
         return out
+
+    return type(base.__name__ + "FromTpudetInit", (base,),
+                {"__init__": __init__, "train_one_epoch": train_one_epoch,
+                 "__module__": __name__})
+
+
+def __getattr__(attr):
+    # the spec's class path of a -tpudet-init variant: "<module>.<SPEC>-tpudet-init"
+    if attr.endswith(INIT_SUFFIX):
+        return from_tpudet_init(attr[:-len(INIT_SUFFIX)])
+    raise AttributeError(attr)
 
 
 _base_specs = tc.model_specs
@@ -58,14 +112,25 @@ def model_specs():
     for name in list(specs):
         cls, size, config, lr, steps, schedule = specs[name]
         specs[name + "-seed1"] = (cls, size, dict(config, seed=1), lr, steps, schedule)
+        specs[name + INIT_SUFFIX] = (f"{__name__}.{name}{INIT_SUFFIX}", size, config, lr,
+                                     steps, schedule)
     cls, size, config, lr, steps, schedule = specs["PFPNetR"]
     specs["PFPNetR-fp32-2000"] = (cls, size, dict(config, compute_dtype="float32"), lr,
                                   2000, [(0.125, 0.1), (0.875, 1.0)])
-    specs["PFPNetR-tpudet-init"] = (f"{__name__}.PFPNetRFromTpudetInit", size, config, lr,
-                                  steps, schedule)
     return specs
 
 
-if __name__ == "__main__":
+def main(argv):
     tc.model_specs = model_specs
-    sys.exit(tc.main(sys.argv[1:]))
+    rc = tc.main(argv)
+    names = [a for a in argv if not a.startswith("--")]
+    for name in names:
+        done = os.path.exists(os.path.join(tc.CONVERGENCE_ROOT, "torch_runs", name,
+                                           "result.json"))
+        if done and (name.endswith(INIT_SUFFIX) or "--carry" in argv):
+            write_carry(name)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

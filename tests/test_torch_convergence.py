@@ -319,29 +319,34 @@ def test_main_runs_each_family_and_fails_unless_all_have_an_map(monkeypatch, cap
 # ------------------------------------------------------------- the pieces
 def test_the_variants_differ_from_their_spec_only_where_named(monkeypatch):
     """``scripts/convergence_variants_torch.py``: every spec and its
-    ``-seed1`` (config seed 1, nothing else), PFPNetR in float32 over the
-    spec's first 2000 steps (250 warm-up at 0.1x, 1750 at the base lr), and
-    PFPNetR from tpudet's initial weights (the spec with the port's
-    subclass that loads them)."""
+    ``-seed1`` (config seed 1, nothing else) and ``-tpudet-init`` (the spec
+    with a subclass of its class that loads tpudet's initial weights,
+    nothing else), and PFPNetR in float32 over the spec's first 2000 steps
+    (250 warm-up at 0.1x, 1750 at the base lr)."""
     monkeypatch.syspath_prepend(str(REPO / "scripts"))
     variants = importlib.import_module("convergence_variants_torch")
     specs, base = variants.model_specs(), variants.tc.model_specs()
     assert set(specs) == set(base) | {n + "-seed1" for n in base} | {
-        "PFPNetR-fp32-2000", "PFPNetR-tpudet-init"}
+        n + "-tpudet-init" for n in base} | {"PFPNetR-fp32-2000"}
     for name, spec in base.items():
         seeded = specs[name + "-seed1"]
         assert seeded[2] == dict(spec[2], seed=1)
         assert seeded[:2] + seeded[3:] == spec[:2] + spec[3:]
+        init = specs[name + "-tpudet-init"]
+        assert init[1:] == spec[1:]
+        cls = variants.tc._load_class(init[0])
+        assert cls.__bases__ == (variants.tc._load_class(spec[0]),)
+        assert cls is variants.tc._load_class(init[0])
+        assert {"__init__", "train_one_epoch"} <= set(vars(cls))
+    assert variants.init_path("PFPNetR").endswith("build/pfpnet_tpudet_init.pt")
+    assert variants.init_path("CenterNet").endswith("build/CenterNet_tpudet_init.pt")
     pfp = base["PFPNetR"]
     fp32 = specs["PFPNetR-fp32-2000"]
     assert fp32[2] == dict(pfp[2], compute_dtype="float32") and fp32[4] == 2000
     warm, full = (max(1, int(round(2000 * f))) for f, _ in fp32[5])
     assert (warm, full) == (250, 1750) and [m for _, m in fp32[5]] == [0.1, 1.0]
     assert round(pfp[4] * pfp[5][0][0]) == warm and pfp[5][1][1] == 1.0
-    init = specs["PFPNetR-tpudet-init"]
-    assert init[1:] == pfp[1:]
-    cls = variants.tc._load_class(init[0])
-    assert cls is variants.PFPNetRFromTpudetInit and issubclass(cls, PFPNetR)
+    assert issubclass(variants.tc._load_class(specs["PFPNetR-tpudet-init"][0]), PFPNetR)
 
 
 def test_the_parallel_render_is_synthvoc_build_byte_for_byte(tmp_path, scripts):

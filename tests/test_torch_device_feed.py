@@ -241,6 +241,34 @@ def test_chunked_streams_with_rotation_match_tpudet():
     got.close()
 
 
+def test_chunked_streams_at_lhrcnn_long_geometry_match_tpudet():
+    """The chunked feed of the LHRCNN-long spec over its whole run: 5000
+    rows of 700x1100x3 bytes in chunks of 1.3e9 bytes, 1e10 resident, a
+    rotation every 6 pins, batch 8, 240 scanned epochs of 50 steps. Rows of
+    3 bytes with the byte budgets scaled by the same factor give the same
+    geometry (7 chunks of 562 rows, 3934 resident); every epoch draws
+    tpudet's indices, and they gather the same dataset rows."""
+    n, per, row = 5000, 3, 700 * 1100 * 3
+    images = np.zeros((n, 1, 1, 3), np.uint8)
+    gt = np.full((n, 24, 5), -1.0, np.float32)
+    gt[:, 0, 0] = np.arange(n)
+    kw = dict(batch=8, seed=1, max_bytes=10**10 // row * per,
+              chunk_bytes=13 * 10**8 // row * per, rotate_every=6)
+    want, got = JaxDeviceDataset(images, gt, **kw), DeviceDataset(images, gt, device="cpu",
+                                                                  **kw)
+    assert (got.k_chunks, got.chunk_rows) == (want.k_chunks, want.chunk_rows) == (7, 562)
+    for _ in range(12000 // 50):
+        w_idx, g_idx = np.asarray(want.scan_indices(50)), got.scan_indices(50).numpy()
+        for ds in (want, got):  # compare after a refresh has landed
+            if ds._prefetch is not None:
+                ds._prefetch[1].join(timeout=60)
+        np.testing.assert_array_equal(g_idx, w_idx)
+        np.testing.assert_array_equal(got.gt.numpy()[g_idx, 0, 0],
+                                      np.asarray(want.gt)[w_idx, 0, 0])
+    assert got._pin_count == want._pin_count == 240
+    got.close()
+
+
 def test_device_dataset_without_device_needs_a_card(monkeypatch):
     images, gt = _images(8, (8, 8), 4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
