@@ -206,6 +206,13 @@ Phases, each raising on failure (nothing is caught):
      phase 21 runs its four: launches by design (RefineDet320-pad60 one
      assignment at G = 60 and one mining pool a step; in the evaluation one
      sorted scan an image), every call == its plain version.
+ 23. tpudet's per-model bench (``scripts/bench_all_torch.py::bench_model``)
+     of SSD300 (batch 32, 300x300) and LH-RCNN (batch 8, 700x1100, its RPN
+     phase) at tpudet's bench specs: 2 warm-up and 6 timed bf16 steps, one
+     more under the FLOP counter, 16 bf16 requests; the timed steps launch
+     by design or the bench raises (SSD300 one assignment and one mining
+     pool a step, LH-RCNN two NMS pools), and so does the whole call; the
+     first call of each kernel == its plain version.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -4439,6 +4446,82 @@ def families_record(families, key):
     return record
 
 
+# ------------------------------------------------ tpudet's per-model bench
+# the two ways a training step launches kernels: SSD300 one assignment and one
+# mining pool a step, LH-RCNN (its RPN phase) two NMS pools a step
+BENCH_ALL_FAMILIES = ("SSD300", "LHRCNN")
+BENCH_ALL_SERVE_SCANS = {"SSD300": 1, "LHRCNN": 2}  # sorted scans a request
+BENCH_ALL_REQUESTS = 16  # bench_model's warm request and its 15 timed ones
+BENCH_ALL_STEPS = 2 + 6 + 1  # warm-up, timed and the FLOP count's step
+
+
+def phase_bench_all(dev):
+    """23. ``scripts/bench_all_torch.py::bench_model`` of ``BENCH_ALL_FAMILIES``
+    at tpudet's bench specs (SSD300 at batch 32, 300x300; LH-RCNN at batch 8,
+    700x1100, its RPN phase), each with the counts set to 0 just before it and
+    read just after: the bench itself raises unless its timed steps launched
+    by design; over the whole call every step and request launched by design
+    too (a per-pick rerun only for a pool that ran out); the first captured
+    call of each kernel == its plain version."""
+    t0 = time.perf_counter()
+    bench = load_script("bench_all_torch")
+    runs = {}
+    for name in BENCH_ALL_FAMILIES:
+        captured = []
+        undo = dp_spy(captured)
+        t = time.perf_counter()
+        try:
+            reset_kernel_counts()
+            result = bench.bench_model(name, bench._specs()[name], device=dev)
+            counts = kernel_counts()
+        finally:
+            undo()
+        seconds = time.perf_counter() - t
+        assigns, scans = bench.KERNELS_A_STEP[name]
+        want = (assigns * BENCH_ALL_STEPS,
+                scans * BENCH_ALL_STEPS + BENCH_ALL_SERVE_SCANS[name] * BENCH_ALL_REQUESTS)
+        if (counts["assign"], counts["sorted_scan"]) != want or (
+                counts["nms_rows"] != counts["sorted_scan"] + counts["per_pick"]):
+            raise AssertionError(f"bench_model({name}) launched {counts}; by design "
+                                 f"{want[0]} assignments and {want[1]} sorted scans")
+        if not result["loss_finite"] or not result["train_step_tflop"] > 0:
+            raise AssertionError(f"bench_model({name}): {result}")
+        first = {}
+        for key, args in captured:
+            first.setdefault(key, args)
+        compared = dp_kernels_vs_plain(list(first.items()))
+        runs[name] = dict(result=result, counts=counts, compared=sorted(first),
+                          seconds=seconds)
+        log(f"phase 23, bench_model({name}): {result['train_imgs_per_sec']} images/s "
+            f"({result['train_step_ms']} ms a step), {result['train_step_tflop']} TFLOP a "
+            f"step, MFU {result['mfu_pct']}%, serve p50 {result['infer_p50_ms']} ms, "
+            f"build and warm-up {result['compile_plus_warmup_s']} s; timed steps "
+            f"launched {result['kernel_launches']}, the whole call {counts}; the first "
+            f"call of {', '.join(sorted(first))} == plain ({compared} held); "
+            f"{seconds:.1f} s")
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    log(f"phase 23 took {seconds:.1f} s; {card}")
+    return dict(seconds=seconds, runs=runs, card=card)
+
+
+def bench_all_record(bench_all, key):
+    """A kernel's launches in phase 23's calls, each family's beside its
+    timed steps'."""
+    runs = bench_all["runs"]
+    record = {"launches": sum(r["counts"][key] for r in runs.values())}
+    for name, r in runs.items():
+        timed = r["result"]["kernel_launches"]
+        record[name] = {"launches": r["counts"][key],
+                        "timed_steps": timed["steps"],
+                        "timed_launches": (timed["assign"] if key == "assign" else
+                                           timed["nms_sorted_scan"] + timed["nms_per_pick"])}
+        if key == "nms_rows":
+            record[name]["launches_by_path"] = {k: r["counts"][k]
+                                                for k in ("sorted_scan", "per_pick")}
+    return record
+
+
 def fmt_share(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -4585,6 +4668,9 @@ def main() -> int:
     # quirk-faithful decode), YOLOv2-consistent, RefineDet320-pad60
     phase22 = phase_carry_and_specs(dev)
     log(json.dumps({"carry_and_specs": phase22}))
+    # 23. tpudet's per-model bench: SSD300 and LH-RCNN through bench_model
+    bench_all = phase_bench_all(dev)
+    log(json.dumps({"bench_all": bench_all}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -4668,7 +4754,8 @@ def main() -> int:
                       + sum(c["nms_rows"] for c in dp_counts)
                       + protocol_record(protocol, "nms_rows")["launches"]
                       + families_record(families, "nms_rows")["launches"]
-                      + families_record(phase22["families"], "nms_rows")["launches"]),
+                      + families_record(phase22["families"], "nms_rows")["launches"]
+                      + bench_all_record(bench_all, "nms_rows")["launches"]),
          "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
          "launches_per_step": counts["nms_rows"] / n_steps,
          "max_abs_err": 0.0,  # indices and flags, equal exactly
@@ -4740,7 +4827,8 @@ def main() -> int:
          "data_parallel": data_parallel_record(dp, "nms_rows"),
          "protocol": protocol_record(protocol, "nms_rows"),
          "protocol_families": families_record(families, "nms_rows"),
-         "protocol_phase22": families_record(phase22["families"], "nms_rows")},
+         "protocol_phase22": families_record(phase22["families"], "nms_rows"),
+         "bench_all": bench_all_record(bench_all, "nms_rows")},
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -4751,7 +4839,8 @@ def main() -> int:
                       + sum(c["assign"] for c in dp_counts)
                       + protocol_record(protocol, "assign")["launches"]
                       + families_record(families, "assign")["launches"]
-                      + families_record(phase22["families"], "assign")["launches"]),
+                      + families_record(phase22["families"], "assign")["launches"]
+                      + bench_all_record(bench_all, "assign")["launches"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -4778,7 +4867,8 @@ def main() -> int:
          "data_parallel": data_parallel_record(dp, "assign"),
          "protocol": protocol_record(protocol, "assign"),
          "protocol_families": families_record(families, "assign"),
-         "protocol_phase22": families_record(phase22["families"], "assign")},
+         "protocol_phase22": families_record(phase22["families"], "assign"),
+         "bench_all": bench_all_record(bench_all, "assign")},
     ]
     print(json.dumps({"kernels": records}))
     print(card)

@@ -19,8 +19,17 @@ run, and of every run named with ``--carry``. In a bfloat16 run every
 kernel is cast to bfloat16 (round to nearest even) before it is used, so
 the copy computes bit for bit what the trained net computes.
 
+``--state-at=STEP`` ends an LH-RCNN ``*-tpudet-init`` run after STEP steps,
+before the next (the script's chunks need not end there), having written
+``state_at_STEP.pt`` to the run's directory: what the RPN phase trains
+(:func:`phase_state`), which ``tests/torch_lhrcnn_teacher.py --state=``
+(on the CPU) and ``scripts/lhrcnn_rcnn_probe_torch.py`` (on the card) step
+the RCNN phase from. The run's steps to there are the full run's: the
+schedule is the spec's, not scaled.
+
 Usage (from the root of a checkout, on the card):
   python scripts/convergence_variants_torch.py NAME [--eval-every=N ...] [--carry]
+      [--state-at=STEP]
 The records go under ``.convergence/torch_runs/NAME/``, as the script's.
 """
 
@@ -38,6 +47,29 @@ from tpudet_torch.runtime import checkpoint as ckpt  # noqa: E402
 
 INIT_SUFFIX = "-tpudet-init"
 CARRY = "carry.pt"
+STATE_AT = {"step": None}  # --state-at's step
+
+
+class StateWritten(BaseException):
+    """Ends a run at ``--state-at``'s step once its state is written (not an
+    ``Exception``: the script's queue records those as failed runs)."""
+
+
+def phase_state(model):
+    """LH-RCNN's RPN-phase state: the ``feature_extractor`` and ``rpn``
+    parameters and their velocity, every BatchNorm statistic (float32, on
+    the host) and ``global_step``."""
+    from tpudet_torch.models.lhrcnn import RPN_SCOPES
+
+    def trained(k):
+        return k.split(".", 1)[0] in RPN_SCOPES
+
+    state = model.net.state_dict()
+    return {"global_step": model.global_step,
+            "params": {k: v.detach().float().cpu() for k, v in state.items()
+                       if trained(k) or k.endswith((".mean", ".var"))},
+            "velocity": {k: v.detach().float().cpu() for k, v in model.velocity.items()
+                         if trained(k)}}
 
 
 def init_path(spec: str) -> str:
@@ -91,9 +123,21 @@ def from_tpudet_init(spec: str):
                                 "mean_loss": round(float(out), 5)}) + "\n")
         return out
 
+    def train_step(self, images, gt, lr):
+        # before the step: the state after STEP steps, whatever the chunks
+        if self.global_step == STATE_AT["step"]:
+            path = os.path.join(os.path.dirname(self.l2_log),
+                                f"state_at_{self.global_step}.pt")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(phase_state(self), path)
+            print(f"\n[{run}] state at step {self.global_step}: {path} "
+                  f"({os.path.getsize(path) / 2**20:.1f} MiB)", flush=True)
+            raise StateWritten(path)
+        return base.train_step(self, images, gt, lr)
+
     return type(base.__name__ + "FromTpudetInit", (base,),
                 {"__init__": __init__, "train_one_epoch": train_one_epoch,
-                 "__module__": __name__})
+                 "train_step": train_step, "__module__": __name__})
 
 
 def __getattr__(attr):
@@ -122,7 +166,13 @@ def model_specs():
 
 def main(argv):
     tc.model_specs = model_specs
-    rc = tc.main(argv)
+    for a in argv:
+        if a.startswith("--state-at="):
+            STATE_AT["step"] = int(a.split("=", 1)[1])
+    try:
+        rc = tc.main(argv)
+    except StateWritten:
+        return 0
     names = [a for a in argv if not a.startswith("--")]
     for name in names:
         done = os.path.exists(os.path.join(tc.CONVERGENCE_ROOT, "torch_runs", name,

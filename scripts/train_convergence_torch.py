@@ -366,6 +366,7 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
     render a dataset not yet there."""
     from tpudet_torch import device as device_lib
     from tpudet_torch.data.device_dataset import DeviceDataset
+    from tpudet_torch.ops.cuda import nms_kernel
 
     device = device_lib.resolve(device)
     cls, (h, w), config, base_lr, total_steps, schedule = _spec(name, size)
@@ -437,6 +438,9 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
     threading.Thread(target=_watchdog, daemon=True).start()
 
     eval_state = {"records": None, "last": done_steps}
+    # the NMS kernel's launches in training, by design (``per_pick``: full-width
+    # reruns of training pools that ran out; the counts move only on the card)
+    train_launches = dict.fromkeys(nms_kernel.launches_by_path, 0)
 
     def _mid_eval():
         if eval_state["records"] is None:
@@ -463,7 +467,11 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
             while seg_steps > 0 and done_steps < total_steps:
                 this = min(chunk, seg_steps)
                 model.num_train = this * batch
+                before = dict(nms_kernel.launches_by_path)
                 mean_loss = model.train_one_epoch(lr)
+                launches = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+                for k, v in launches.items():
+                    train_launches[k] += v
                 done_steps += this
                 seg_steps -= this
                 progress["t"] = time.time()
@@ -471,7 +479,8 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
                 rec = {"step": done_steps, "lr": lr,
                        "mean_loss": round(float(mean_loss), 5),
                        "imgs_per_sec": round(done_steps * batch / (time.time() - t0), 1),
-                       "elapsed_s": round(time.time() - t0, 1)}
+                       "elapsed_s": round(time.time() - t0, 1),
+                       "nms_launches": launches}
                 curve.write(json.dumps(rec) + "\n")
                 curve.flush()
                 if not np.isfinite(mean_loss):
@@ -498,8 +507,8 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
     model.save_weight("latest", os.path.join(run_dir, "ckpt"))
     _write_meta(run_dir, done_steps, train_secs)
 
-    print(f"\n[{name}] trained {done_steps} steps in {train_secs:.0f}s; "
-          f"evaluating ...", flush=True)
+    print(f"\n[{name}] trained {done_steps} steps in {train_secs:.0f}s (NMS kernel "
+          f"launches {json.dumps(train_launches)}); evaluating ...", flush=True)
     n_eval = 50 if smoke else n_test
     records = list(synthvoc.test_records(d))[:n_eval]
     t1 = time.time()
@@ -512,6 +521,7 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
         "eval_images": len(records),
         "eval_seconds": round(time.time() - t1, 1),
         **_scores(mAP, aps),
+        "train_nms_launches": train_launches,
         "device": device_lib.card_line(device),
     }
     # anything under 500 steps is a probe, never a convergence result

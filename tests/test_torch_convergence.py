@@ -171,6 +171,40 @@ def stand_ins(monkeypatch, tmp_path, scripts):
     return run
 
 
+def test_training_pools_launches_are_recorded_apart_from_the_evaluations(
+        stand_ins, monkeypatch, tmp_path):
+    """The NMS kernel's launches in each chunk of training go into its curve
+    record and their sum into the result, by design (``per_pick``: a training
+    pool's full-width rerun); an evaluation's launches are not counted there.
+    The stand-in launches as LH-RCNN does, two sorted scans a step, plus one
+    rerun a chunk; an evaluation launches 5 reruns."""
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    monkeypatch.setattr(nms_kernel, "launches_by_path", {"sorted_scan": 0, "per_pick": 0})
+    real = _fake_model
+
+    def launching(epochs, configs, cut_at=None):
+        class Model(real(epochs, configs, cut_at)):
+            def train_one_epoch(self, lr):
+                nms_kernel.launches_by_path["sorted_scan"] += 2 * (self.num_train
+                                                                   // self.batch)
+                nms_kernel.launches_by_path["per_pick"] += 1
+                return super().train_one_epoch(lr)
+        return Model
+
+    def evaluate_model(model, records):
+        nms_kernel.launches_by_path["per_pick"] += 5
+        return 0.5, {3: 0.5}
+
+    monkeypatch.setattr(sys.modules[__name__], "_fake_model", launching)
+    monkeypatch.setattr(t_evaluate, "evaluate_model", evaluate_model)
+    got = stand_ins("port", "run_model", "LHRCNN", smoke=True, eval_every=30)
+    curve = _lines(tmp_path / "port" / "torch_runs" / "LHRCNN" / "curve.jsonl")
+    assert [c["nms_launches"] for c in curve] == [{"sorted_scan": 60, "per_pick": 1}] * 2
+    assert got["result"]["train_nms_launches"] == {"sorted_scan": 120, "per_pick": 2}
+    assert nms_kernel.launches_by_path == {"sorted_scan": 120, "per_pick": 2 + 5 * 3}
+
+
 def _schedule_lrs(spec, smoke):
     """Each step's lr, from the spec's schedule alone."""
     _, _, _, base_lr, total, schedule = spec
@@ -210,7 +244,7 @@ def test_the_loop_takes_tpudets_steps_at_tpudets_lr(tmp_path, scripts, stand_ins
         assert kwargs["rotate_every"] == config["rotate_every"]
     assert got["configs"] == want["configs"]
     assert not set(got["configs"][0]) & set(tc.SCRIPT_KEYS)
-    assert set(got["result"]) == set(want["result"]) | {"device"}
+    assert set(got["result"]) == set(want["result"]) | {"device", "train_nms_launches"}
     run_dir = tmp_path / "port" / "torch_runs" / name
     steps = sum(n for n, _ in got["epochs"])
     result_name = "result.json" if steps >= 500 and not smoke else "probe_result.json"
@@ -347,6 +381,100 @@ def test_the_variants_differ_from_their_spec_only_where_named(monkeypatch):
     assert (warm, full) == (250, 1750) and [m for _, m in fp32[5]] == [0.1, 1.0]
     assert round(pfp[4] * pfp[5][0][0]) == warm and pfp[5][1][1] == 1.0
     assert issubclass(variants.tc._load_class(specs["PFPNetR-tpudet-init"][0]), PFPNetR)
+
+
+def test_state_at_writes_the_rpn_phases_state_and_ends_the_run(monkeypatch, tmp_path):
+    """``--state-at=2`` on an LH-RCNN ``-tpudet-init`` class (192x320, batch
+    2): an epoch of 4 steps stops before its third, the step after step 2
+    (the script's chunks cross step 5000 at 5010), and writes
+    ``state_at_2.pt`` (the
+    ``feature_extractor`` and ``rpn`` parameters and velocity, every
+    BatchNorm statistic, equal to the model's; nothing of ``rcnn`` but its
+    statistics) and ends the run with ``StateWritten``, which the script's
+    queue does not record as a failed run."""
+    from tpudet_torch.models.lhrcnn import LHRCNN, RPN_SCOPES
+
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    variants = importlib.import_module("convergence_variants_torch")
+    config = {"mode": "train", "data_shape": [192, 320, 3],
+              "data_format": "channels_last", "num_classes": 4, "weight_decay": 1e-4,
+              "keep_prob": 0.5, "batch_size": 2, "rpn_first_step": 3,
+              "rcnn_first_step": 5, "rpn_second_step": 7, "nms_score_threshold": 0.2,
+              "nms_max_boxes": 10, "nms_iou_threshold": 0.45, "post_nms_proposal": 500}
+    images = np.random.default_rng(0).uniform(0, 255, (2, 192, 320, 3)).astype(np.float32)
+    gt = -np.ones((2, 24, 5), np.float32)
+    gt[:, 0] = [96, 160, 60, 80, 3]
+
+    def batches():
+        while True:
+            yield images, gt
+
+    init = tmp_path / "init.pt"
+    torch.save(LHRCNN(config, device="cpu").net.state_dict(), init)
+    monkeypatch.setattr(variants, "init_path", lambda spec: str(init))
+    monkeypatch.setattr(variants.tc, "CONVERGENCE_ROOT", str(tmp_path))
+    monkeypatch.setitem(variants.STATE_AT, "step", 2)
+    provider = {"data_shape": [192, 320, 3], "num_train": 8, "num_val": 0,
+                "train_generator": (lambda: None, batches()), "val_generator": None}
+    model = variants.from_tpudet_init("LHRCNN")(config, provider, device="cpu")
+    with pytest.raises(variants.StateWritten):
+        model.train_one_epoch(1e-3)
+    assert not issubclass(variants.StateWritten, Exception)
+    blob = torch.load(tmp_path / "torch_runs" / "LHRCNN-tpudet-init" / "state_at_2.pt")
+    assert blob["global_step"] == model.global_step == 2
+    state = model.net.state_dict()
+    stats = {k for k in state if k.endswith((".mean", ".var"))}
+    trained = {k for k in state if k.split(".", 1)[0] in RPN_SCOPES}
+    assert set(blob["params"]) == trained | stats
+    assert any(k.startswith("rcnn.") for k in state) and not any(
+        k.startswith("rcnn.") for k in set(blob["params"]) - stats)
+    assert set(blob["velocity"]) == trained - stats
+    for k, v in blob["params"].items():
+        assert torch.equal(v, state[k].float()), k
+    for k, v in blob["velocity"].items():
+        assert torch.equal(v, model.velocity[k].float()), k
+    assert any(float(v.abs().sum()) > 0 for v in blob["velocity"].values())
+
+
+def test_rcnn_probe_steps_the_rcnn_phase_from_a_carried_state(monkeypatch, tmp_path):
+    """``scripts/lhrcnn_rcnn_probe_torch.py`` at 192x320 on 16 rendered
+    scenes, bfloat16 (float32 differs in ``compute_dtype`` alone): the model takes the initial file with the carried state over
+    it, its velocity and ``global_step`` 5000, trains 2 steps of the RCNN
+    phase at the spec's lr there (3e-4) and scores the held-out scenes; a
+    state whose steps would leave the RCNN phase is refused; the lr follows
+    the spec's schedule."""
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    variants = importlib.import_module("convergence_variants_torch")
+    probe = importlib.import_module("lhrcnn_rcnn_probe_torch")
+    cls, _, config, _, _, _ = variants.tc._spec("LHRCNN-long", (192, 320))
+    for k in variants.tc.SCRIPT_KEYS:
+        config.pop(k, None)
+    model = cls(config, None, device="cpu")
+    init = tmp_path / "init.pt"
+    torch.save(model.net.state_dict(), init)
+    model.global_step = 5000
+    for v in model.velocity.values():
+        v.fill_(1e-3)
+    state = tmp_path / "state_at_5000.pt"
+    torch.save(variants.phase_state(model), state)
+    kw = dict(root=str(tmp_path), size=(192, 320), n_train=16, n_test=4, chunk=1,
+              init=str(init), device="cpu")
+    monkeypatch.setattr(probe, "EVAL_IMAGES", 2)
+    dtype = "bfloat16"
+    got = probe.run(dtype, str(state), 2, **kw)
+    assert got["from_step"] == 5000 and got["steps"] == 2 and got["lr"] == 3e-4
+    assert list(got["windows"]) == ["5500"] and np.isfinite(got["windows"]["5500"])
+    assert 0.0 <= got["mAP@0.5_voc07"] <= 1.0 and got["eval_images"] == 2
+    curve = _lines(tmp_path / "torch_runs" / probe.RUN / f"curve_{dtype}.jsonl")
+    assert [c["step"] for c in curve] == [5001, 5002]
+    blob = variants.phase_state(model)
+    blob["global_step"] = 4999
+    torch.save(blob, state)
+    with pytest.raises(ValueError, match="leave the RCNN phase"):
+        probe.run(dtype, str(state), 2, **kw)
+    schedule = [(0.03, 0.1), (0.8, 1.0), (0.17, 0.1)]
+    assert [probe._lr_at(s, 3e-4, 12000, schedule) for s in (359, 360, 9959, 9960)] == [
+        3e-4 * 0.1, 3e-4, 3e-4, 3e-4 * 0.1]
 
 
 def test_the_parallel_render_is_synthvoc_build_byte_for_byte(tmp_path, scripts):
