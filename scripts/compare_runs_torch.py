@@ -1,6 +1,7 @@
 """Hold a convergence run of the port against tpudet's run of the same spec.
 
     python scripts/compare_runs_torch.py NAME [TPUDET_NAME] [--window=1000]
+    python scripts/compare_runs_torch.py --free-run[=DIR] [--window=250]
 
 Reads ``.convergence/torch_runs/NAME/`` (the port's ``curve.jsonl``,
 ``eval.jsonl``, ``result.json``) and ``.convergence/runs/TPUDET_NAME/``
@@ -10,6 +11,14 @@ range, its ``--eval-every`` curve, the mean loss of each window of steps
 (``(k - window, k]``) on both sides and the port's difference in percent
 (windows that tpudet's curve does not reach are left out), the port's
 images/s and train seconds, and the card it ran on.
+
+``--free-run`` reads ``tests/torch_lhrcnn_free_run.py``'s records (``DIR``,
+default ``.convergence/torch_runs/LHRCNN-long-cpu-free/``) and prints
+:func:`free_run`: the mean loss of each window of four curves of
+LHRCNN-long's RCNN phase from the free run's first step, tpudet's and the
+port's CPU curves, the port's card rerun from the same state
+(``LHRCNN-long-tpudet-init-rerun``) and tpudet's own run, and the free
+run's classification by the rule that ``PERF.md`` states for it.
 """
 
 import json
@@ -18,6 +27,12 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUFFIXES = ("-seed1", "-tpudet-init")
+FREE_RUN = "LHRCNN-long-cpu-free"
+CARD_RERUN = "LHRCNN-long-tpudet-init-rerun"
+# the rule: the port's RCNN step is at fault if its CPU curve sits FAULT_PCT
+# or more over tpudet's in every window from FAULT_FROM; it is cleared if
+# the two agree within CLEAR_PCT in every window from CLEAR_FROM
+FAULT_PCT, FAULT_FROM, CLEAR_PCT, CLEAR_FROM = 2.0, 5750, 1.0, 5500
 
 
 def _lines(path):
@@ -25,6 +40,12 @@ def _lines(path):
         return []
     with open(path) as f:
         return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def last_per_step(curve):
+    """A curve with one record a step, the last: a resumed run appends the
+    epochs after its checkpoint again."""
+    return list({rec["step"]: rec for rec in curve}.values())
 
 
 def windows(curve, width):
@@ -47,7 +68,7 @@ def compare(name, base=None, width=1000, root=os.path.join(ROOT, ".convergence")
         port = json.load(f)
     ref_path = os.path.join(ref_dir, "result.json")
     ref = json.load(open(ref_path)) if os.path.exists(ref_path) else {}
-    mine, theirs = (windows(_lines(os.path.join(d, "curve.jsonl")), width)
+    mine, theirs = (windows(last_per_step(_lines(os.path.join(d, "curve.jsonl"))), width)
                     for d in (port_dir, ref_dir))
     aps = list(port["per_class_AP"].values())
     return {
@@ -66,13 +87,111 @@ def compare(name, base=None, width=1000, root=os.path.join(ROOT, ".convergence")
     }
 
 
+def epochs(total, schedule, base_lr, chunk=50):
+    """``(first step, steps, lr)`` of each epoch of a convergence run
+    (``train_convergence_torch.run_model``'s chunks of the schedule's
+    segments); its ``curve.jsonl`` has a line per epoch."""
+    done = 0
+    for frac, mult in schedule:
+        seg = max(1, int(round(total * frac)))
+        while seg > 0 and done < total:
+            this = min(chunk, seg)
+            yield done, this, base_lr * mult
+            done += this
+            seg -= this
+
+
+def _chunks(spec):
+    """``{last step + 1: first step}`` of each epoch of ``spec``'s run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import train_convergence_torch as tc
+
+    _, _, _, lr, total, schedule = tc.model_specs()[spec]
+    return {first + k: first for first, k, _ in epochs(total, schedule, lr)}
+
+
+def free_run(run_dir=None, start=None, width=250, root=os.path.join(ROOT, ".convergence")):
+    """The free run's four curves in windows of ``width`` steps from its
+    first step ``start`` (default: the first in ``steps.jsonl``): each curve
+    as the script's epochs (the CPU curves' steps averaged epoch by epoch;
+    epochs that begin before ``start`` or that the CPU run has not finished
+    are left out), then ``windows``. Returns the windows, the differences
+    in percent (port over tpudet on the CPU, the card run over tpudet's, the
+    CPU curves' mean over each card curve), the sample mismatches and the
+    classification."""
+    run_dir = run_dir or os.path.join(root, "torch_runs", FREE_RUN)
+    steps = _lines(os.path.join(run_dir, "steps.jsonl"))
+    start = steps[0]["step"] if start is None else start
+    last = steps[-1]["step"] + 1
+    chunks = {end: first for end, first in _chunks("LHRCNN-long").items()
+              if first >= start and end <= last}
+    by_step = {r["step"]: r for r in steps}
+
+    def cpu(key):
+        return [{"step": end, "mean_loss": sum(by_step[s][key] for s in range(first, end))
+                 / (end - first)} for end, first in chunks.items()]
+
+    curves = {"tpudet_cpu": cpu("tpudet_loss"), "port_cpu": cpu("port_loss")}
+    for name, path in (("port_card", os.path.join(root, "torch_runs", CARD_RERUN)),
+                       ("tpudet_tpu", os.path.join(root, "runs", "LHRCNN-long"))):
+        curves[name] = [r for r in last_per_step(_lines(os.path.join(path, "curve.jsonl")))
+                        if r["step"] in chunks]
+    win = {k: windows(v, width) for k, v in curves.items()}
+    ends = sorted(win["port_cpu"])
+
+    def pct(a, b):
+        return {k: round(100 * (win[a][k] / win[b][k] - 1), 2) for k in ends
+                if k in win[a] and k in win[b]}
+
+    gap = pct("port_cpu", "tpudet_cpu")
+    cpu_mean = {k: (win["port_cpu"][k] + win["tpudet_cpu"][k]) / 2 for k in ends}
+    fault = [gap[k] for k in ends if k >= FAULT_FROM]
+    clear = [gap[k] for k in ends if k >= CLEAR_FROM]
+    if fault and min(fault) >= FAULT_PCT:
+        verdict = "port_rcnn_step_at_fault"
+    elif clear and max(abs(g) for g in clear) <= CLEAR_PCT:
+        verdict = "rcnn_step_cleared"
+    else:
+        verdict = "undecided"
+    near = {k: ("port_card" if abs(cpu_mean[k] - win["port_card"][k])
+                < abs(cpu_mean[k] - win["tpudet_tpu"][k]) else "tpudet_tpu")
+            for k in ends if k >= CLEAR_FROM and k in win["port_card"]
+            and k in win["tpudet_tpu"]}
+    return {
+        "start": start, "steps": last - start, "width": width,
+        "windows": {k: {c: round(win[c][k], 5) for c in curves if k in win[c]}
+                    for k in ends},
+        "port_cpu_over_tpudet_cpu_pct": gap,
+        "port_card_over_tpudet_tpu_pct": pct("port_card", "tpudet_tpu"),
+        "cpu_mean_over_port_card_pct": {
+            k: round(100 * (cpu_mean[k] / win["port_card"][k] - 1), 2)
+            for k in ends if k in win["port_card"]},
+        "cpu_mean_over_tpudet_tpu_pct": {
+            k: round(100 * (cpu_mean[k] / win["tpudet_tpu"][k] - 1), 2)
+            for k in ends if k in win["tpudet_tpu"]},
+        "cpu_curves_nearer": near,
+        "sample_mismatched_images": sum(len(r["sample_mismatch"]) for r in steps),
+        "steps_with_sample_mismatch": sum(bool(r["sample_mismatch"]) for r in steps),
+        "mismatched_images_with_other_sets": sum(
+            not same for r in steps for same in r.get("mismatch_same_sets", [])),
+        "verdict": verdict,
+    }
+
+
 def main(argv):
     args = [a for a in argv if not a.startswith("--")]
-    width = 1000
+    width = None
     for a in argv:
         if a.startswith("--window="):
             width = int(a.split("=")[1])
-    print(json.dumps(compare(args[0], args[1] if len(args) > 1 else None, width)))
+    free = [a for a in argv if a.split("=")[0] == "--free-run"]
+    if free:
+        run_dir = free[0].split("=", 1)[1] if "=" in free[0] else None
+        print(json.dumps(free_run(run_dir, width=width or 250)))
+        return 0
+    print(json.dumps(compare(args[0], args[1] if len(args) > 1 else None, width or 1000)))
     return 0
 
 
