@@ -7,9 +7,11 @@ Phases, each raising on failure (nothing is caught):
      kernel (NMS, anchor assignment) from the checkout's sources, one nvcc
      per source, all started together;
   2. each kernel against its plain PyTorch version, on the card, on the shapes
-     the system gives it, with exact equality of the outputs: the NMS kernel's
-     two designs (the sorted bitmask scan for rows up to 1024 candidates, one
-     block per row beyond) on every case, a row holding a NaN included; the
+     the system gives it, with exact equality of the outputs: the NMS pool's
+     four kernels (select, mask, scan, continuation) through ``nms_rows``,
+     through it with 8-wide pools and 16-wide tiles (continuations across
+     tiles) and through tpudet's pool, on every case, a row holding a NaN
+     included, and a scene whose pool runs out (one row continued); the
      assignment kernel on eight cases, in one launch a call, with its scratch
      left at zero and back-to-back calls of other shapes; kernel times with
      CUDA events;
@@ -24,9 +26,12 @@ Phases, each raising on failure (nothing is caught):
      every step ran the assignment kernel and the NMS kernel; the loss must be
      finite and fall; the loss with both kernels equals the loss with both
      plain versions on the same head outputs; then images/s and device time in
-     bf16 and fp32, a profiler breakdown of one step, and the NMS kernel's two
-     designs timed in turns on that step's own mining pool (and on a request's
-     decode pool), the per-pick design at full width;
+     bf16 and fp32, a profiler breakdown of one step, the step's synchronising
+     calls under the sync debug mode, and the pool (``pool_site``) on that
+     step's own mining pool and on a request's decode pool: the select kernel
+     == the stable order's head, no host sync, a CUDA graph's replay == plain,
+     the old pool call (sort, scan, host check) and the new one in turns, each
+     kernel's time;
   5. RetinaNet serve: the RetinaNet training driver's config
      (``drivers/testretinanet.py``: 500x500, bottleneck [3, 4, 6, 3], 20
      classes, 47961 anchors) in test mode, fp32, score threshold 0.01, with
@@ -40,7 +45,7 @@ Phases, each raising on failure (nothing is caught):
   7. RetinaNet's ImageNet pretraining mode: 3 steps at batch 32;
   8. both kernels at RetinaNet's shapes against their plain versions, timed:
      the assignment at [32, 60, 47961], the decode pool at [20, 47961], and a
-     decode whose pool runs out, rerun at full width by the per-pick kernel;
+     decode whose pool runs out, its row continued on the card;
   9. RefineDet320 and PFPNet-R at their training scripts' config
      (``drivers/testrefinedet.py``, ``drivers/testpfpnet.py``: 320x320, 20
      classes, 6375 anchors), each in turn: serve 10 fp32 requests at score
@@ -82,13 +87,12 @@ Phases, each raising on failure (nothing is caught):
      runs away) with no kernel launch, a finite and falling loss, a profiled
      step and peak memory; then the NMS kernel's two designs and the whole
      pool call timed on a request's pool, and one decode forced to run out
-     of its pool, rerun at full width by the per-pick kernel == the plain
-     version;
+     of its pool, its row continued on the card == the plain version;
  14. CenterNet at its training script's config (``drivers/testcenternet.py``:
      384x384, 20 classes, DLA, TF-style Adam): serve 10 fp32 requests at the
      script's score threshold 0.1 and top-k 100 (BatchNorm statistics from 4
-     seeded images where the initial ones let the heads run away), no kernel
-     launch, the decode on the card == the decode on the CPU on the same
+     seeded images where the initial ones let the heads run away), one select
+     launch a request (the top K), the decode on the card == on the CPU on the same
      head outputs, the network against the CPU; train 12 bf16 steps at batch
      15, lr 0.001, with no kernel launch, a finite and falling loss, a
      profiled step and peak memory; one Adam update on the card against the
@@ -98,9 +102,9 @@ Phases, each raising on failure (nothing is caught):
      700x1100, 20 classes, 6818 anchors, post_nms_proposal 500): serve 10
      fp32 requests at a score threshold chosen and logged from one probe
      image (BatchNorm statistics from 4 seeded images where the initial ones
-     let the RPN's ``phw`` run away or vanish): two sorted scans a request (the
-     proposal pool [1, 1000] of [1, 6818], the class rows [20, 500]), a
-     per-pick rerun only where the proposal pool runs out (counted), no
+     let the RPN's ``phw`` run away or vanish): two NMS pools a request (the
+     proposal pool [1, 1000] of [1, 6818], the class rows [20, 500]), the
+     proposal pool's row continued on the card where it runs out (counted), no
      assignment, decode with the kernel == with the plain version, the
      network and the RoI head against the CPU; train 12 bf16 steps at batch
      32, lr 0.003, on one fixed batch: 2 warm-up and 4 measured steps of
@@ -111,8 +115,7 @@ Phases, each raising on failure (nothing is caught):
      each phase, the other phase's parameters and velocities bit for bit;
      ``rpn_loss_and_sample`` and ``rcnn_losses`` with the kernel == with the
      plain version; then the NMS kernel timed on the four pools and on the
-     negative pool forced to run out, rerun at [32, 6818] by the per-pick
-     kernel;
+     negative pool forced to run out, its row continued on the card;
  16. the feed: drivers/testSSD300.py's path at full width. The mini VOC set
      (``tests/torch_data/voc_mini``, 8 images) replicated to 64 records,
      written by the port's ``voc.dataset2tfrecord`` into 2 shards and read
@@ -189,9 +192,9 @@ Phases, each raising on failure (nothing is caught):
      (800x1200, batch 8, the host feed at ``gt_pad`` 24), each on 32 train
      and 8 held-out scenes rendered at its input size, its schedule scaled to
      6 steps and one evaluation: finite losses; launches by design (LH-RCNN's
-     two NMS pools a step, the others none; in the evaluation two sorted
-     scans an image for LH-RCNN, one for YOLOv3 and FCOS, none for
-     CenterNet, and a per-pick rerun for each pool that runs out); no
+     two NMS pools a step, the others none; in the evaluation two NMS pools
+     an image for LH-RCNN, one for YOLOv3 and FCOS, one top-K select for
+     CenterNet, a row that runs out of its pool continued on the card); no
      assignment; every call of either kernel, training's and the
      evaluation's, == its plain version on its inputs.
  22. the carry copy and the remaining specs' protocol paths: CenterNet through
@@ -213,6 +216,10 @@ Phases, each raising on failure (nothing is caught):
      by design or the bench raises (SSD300 one assignment and one mining
      pool a step, LH-RCNN two NMS pools), and so does the whole call; the
      first call of each kernel == its plain version.
+ 24. the NMS pool with no host sync: ``ssd_loss`` forward and backward at
+     SSD300's training shapes, LH-RCNN's ``rpn_select`` at 700x1100 and
+     ``per_class_nms`` under ``torch.cuda.set_sync_debug_mode("error")``;
+     the main-path pools' old and new pool calls as one table.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -295,7 +302,7 @@ def nms_cases(anchor_corners):
     cases.append(("mining", anchor_corners, scores,
                   rng.integers(0, 400, 32).astype(np.int32), 384, 0.7))
     # the mining shape with a NaN score in image 0: through the pool, that row
-    # selects nothing, and the pool's check reruns the batch at full width
+    # selects nothing (it looks run out; the continuation leaves it empty)
     scores = scores.copy()
     scores[0, int(np.argmax(scores[0]))] = np.nan
     ns = rng.integers(0, 400, 32).astype(np.int32)
@@ -378,74 +385,102 @@ def fmt_ms(ms, digits=5) -> str:
     return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
-def mean_ms(*ms):
-    """The mean of measured times; None if any was not measured."""
-    return None if None in ms else sum(ms) / len(ms)
+NMS_KERNELS = ("select", "mask", "scan", "continue")
+NMS_COUNT_KEYS = (*NMS_KERNELS, "continued")  # a counts dict's NMS entries
+POOL_KEYS = ("pool_call_ms", "old_pool_call_ms", "device_ms", "kernels", "plain_ms",
+             "bound_ms", "bound_by", "picks", "shape", "full_shape")  # of pool_site's
+RUN_OUT_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks", "shape",
+                "pool_call_ms")  # of pool_run_out's
 
 
-def per_pick_launch(boxes, scores, ns, max_out, thr):
-    """One launch of the per-pick NMS kernel (one block per row) through the C
-    entry with preallocated outputs, so the wrapper's Python work stays out of
-    its time."""
+def nms_counts() -> dict:
+    """The NMS wrapper's counts: its calls (``nms_rows``), each kernel's
+    launches, and the rows its continuation took past their pool
+    (``continued``, read from the card)."""
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    return {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path,
+            "continued": int(nms_kernel.continued_rows("cuda"))}
+
+
+def pool_call_args(args):
+    """``(boxes, scores, num_select, max_out, iou_threshold, pool)`` of a
+    captured ``nms_rows`` call of a pool (the card takes no order) or of a
+    ``batched_greedy_nms_pretopk`` call (tpudet's pool)."""
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    boxes, scores, ns, max_out, thr = args[:5]
+    pool = args[6] if len(args) > 6 else nms_kernel.pretopk_pool(max_out)
+    return boxes, scores, ns, max_out, thr, pool
+
+
+def raw_pool(boxes, scores, ns, max_out, thr, pool=None, tile=None):
+    """The pool's kernels on these inputs through their C entries, with
+    buffers allocated once, so the wrapper's Python work stays out of their
+    times: ``{kernel: launcher}`` for ``NMS_KERNELS`` (``continue`` where the
+    pool is narrower than the rows), ``"all"`` (each in order), ``"p"`` and
+    ``"out"`` (sel, valid, order, live, row state after ``all``)."""
     import torch
 
     from tpudet_torch.ops.cuda import nms_kernel
 
-    fn = nms_kernel._library("tpudet_nms_rows")
     b, n = scores.shape
-    sel = torch.empty((b, max_out), dtype=torch.int32, device=scores.device)
-    valid = torch.empty((b, max_out), dtype=torch.bool, device=scores.device)
-    work = torch.empty((b, n), dtype=torch.float32, device=scores.device)
+    dev = scores.device
+    p = nms_kernel.pool_width(n, pool)
+    tile = nms_kernel.TILE if tile is None else tile
+    i32 = dict(dtype=torch.int32, device=dev)
+    order, live, state = (torch.empty((b, p), **i32), torch.empty((b,), **i32),
+                          torch.empty((b, 2), **i32))
+    mask = torch.empty((b, p, nms_kernel.mask_stride(p)), dtype=torch.int64, device=dev)
+    sel = torch.empty((b, max_out), **i32)
+    valid = torch.empty((b, max_out), dtype=torch.bool, device=dev)
+    continued = torch.zeros(1, **i32)
     stride = 0 if boxes.dim() == 2 else n * 4
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (scores.data_ptr(), work.data_ptr(), boxes.data_ptr(), stride,
-            ns.data_ptr(), b, n, max_out, thr, sel.data_ptr(), valid.data_ptr(), stream)
+    cont = p < n
+    ptrs = {
+        "select": (scores.data_ptr(), b, n, p, order.data_ptr(), live.data_ptr(), stream),
+        "mask": (scores.data_ptr(), boxes.data_ptr(), stride, order.data_ptr(), b, n, p, thr,
+                 mask.data_ptr(), stream),
+        "scan": (scores.data_ptr(), order.data_ptr(), ns.data_ptr(), live.data_ptr(), b, n,
+                 p, max_out, mask.data_ptr(), sel.data_ptr(), valid.data_ptr(),
+                 state.data_ptr() if cont else None, stream),
+        "continue": (scores.data_ptr(), boxes.data_ptr(), stride, order.data_ptr(),
+                     ns.data_ptr(), state.data_ptr(), b, n, p, tile, max_out, thr,
+                     sel.data_ptr(), valid.data_ptr(), continued.data_ptr(), stream)}
+    # every buffer stays referenced while the launchers live: they hold raw pointers
+    out = {"p": p, "out": (sel, valid, order, live, state), "buffers": (mask, continued)}
+    for k in NMS_KERNELS if cont else NMS_KERNELS[:3]:
+        fn = nms_kernel._library(f"tpudet_nms_{k}", dev)
 
-    def launch():
-        if fn(*ptrs) != 0:
-            raise RuntimeError("NMS kernel launch failed")
+        def launch(fn=fn, a=ptrs[k], k=k):
+            if fn(*a) != 0:
+                raise RuntimeError(f"NMS {k} kernel launch failed")
+        out[k] = launch
+    kernels = [out[k] for k in NMS_KERNELS if k in out]
+    out["all"] = lambda: [launch() for launch in kernels]
+    return out
 
-    return launch
 
-
-def sorted_launch(boxes, scores, ns, max_out, thr, order):
-    """One call of the sorted bitmask scan (its mask and scan launches) over a
-    given order, through the C entry."""
+def old_pool_call(raw, boxes, scores, ns, max_out, pool):
+    """The pool as it ran before the select kernel and the continuation: a
+    stable sort of the full rows, the mask and scan kernels over its head
+    (``raw``'s launchers, its select run once before so the scan's live
+    counts are set), and the run-out check read on the host. Returns
+    ``(sel, valid, ran out)``; the full-width rerun a pool that ran out took
+    is gone."""
     import torch
 
     from tpudet_torch.ops.cuda import nms_kernel
 
-    fn = nms_kernel._library("tpudet_nms_sorted")
-    b, n = scores.shape
-    p = order.shape[1]
-    sel = torch.empty((b, max_out), dtype=torch.int32, device=scores.device)
-    valid = torch.empty((b, max_out), dtype=torch.bool, device=scores.device)
-    mask = torch.empty((b, p, nms_kernel.mask_stride(p)), dtype=torch.int64,
-                       device=scores.device)
-    stride = 0 if boxes.dim() == 2 else n * 4
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (scores.data_ptr(), boxes.data_ptr(), stride, order.data_ptr(), ns.data_ptr(),
-            b, n, p, max_out, thr, mask.data_ptr(), sel.data_ptr(), valid.data_ptr(),
-            stream)
-
-    def launch():
-        if fn(*ptrs) != 0:
-            raise RuntimeError("NMS kernel launch failed")
-
-    return launch
-
-
-@contextlib.contextmanager
-def per_pick_only():
-    """Within it, the NMS wrapper takes the per-pick design at every width."""
-    from tpudet_torch.ops.cuda import nms_kernel
-
-    limit = nms_kernel.SORTED_SCAN_MAX_WIDTH
-    nms_kernel.SORTED_SCAN_MAX_WIDTH = 0
-    try:
-        yield
-    finally:
-        nms_kernel.SORTED_SCAN_MAX_WIDTH = limit
+    sel, valid, order = raw["out"][:3]
+    p = raw["p"]
+    order.copy_(nms_kernel.stable_order(scores)[:, :p])
+    raw["mask"]()
+    raw["scan"]()
+    n_active = torch.sum(scores > NEG / 2, dim=-1)
+    quota = torch.minimum(torch.clamp(ns.long(), max=max_out), n_active)
+    return sel, valid, bool(torch.any((valid.sum(-1) < quota) & (n_active > p)))
 
 
 def bound(nbytes, flops):
@@ -454,15 +489,238 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def walked_prefix(scores, ns, max_out, sel, valid, p, ran):
+    """``(rank [B, N], prefix [B])``: each candidate's position in its row's
+    stable descending order, and how many positions of that order the greedy
+    walk of the pool call must reach: the pool's ``p``, and for a row that
+    ran out (``ran``, its first score not NaN) its last pick's position + 1
+    when it filled its quota, else its live count."""
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    b, n = scores.shape
+    order = nms_kernel.stable_order(scores).long()
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=scores.device).expand(b, n).contiguous())
+    live = torch.sum(scores > NEG / 2, dim=-1)
+    picks = valid.sum(-1)
+    last = torch.where(valid, torch.gather(rank, 1, sel.long()), -1).amax(-1)
+    filled = picks >= torch.minimum(torch.clamp(ns.long(), max=max_out), live)
+    walked = torch.where(filled, last + 1, live)
+    first_nan = torch.isnan(torch.gather(scores, 1, order[:, :1]))[:, 0]
+    prefix = torch.where(ran & ~first_nan, torch.clamp(walked, min=p), p)
+    return rank, prefix
+
+
+def pool_call_work(boxes, scores, ns, max_out, thr, sel, valid, p, ran):
+    """Bytes and float32 operations of a pool call's function, greedy NMS of
+    the full rows through pools of ``p`` (``sel``, ``valid`` its result,
+    ``ran`` the rows that ran out): every score read once (the pool's
+    selection must see each), the boxes of the candidates the walk reaches
+    (:func:`walked_prefix`) read once, the budgets read and the picks
+    written once; and :func:`nms_work`'s IoU tests over those candidates
+    only, so none past a row's pool but where it ran out."""
+    import torch
+
+    b, n = scores.shape
+    rank, prefix = walked_prefix(scores, ns, max_out, sel, valid, p, ran)
+    reached = rank < prefix[:, None]
+    flops = nms_work(boxes, torch.where(reached, scores, NEG), sel, valid, thr)[1]
+    boxes_read = int(reached.any(0).sum() if boxes.dim() == 2 else reached.sum())
+    nbytes = b * n * 4 + boxes_read * 16 + b * 4 + b * max_out * 5
+    return nbytes, flops
+
+
+def pool_kernel_work(boxes, scores, ns, max_out, thr, raw):
+    """Bytes and float32 operations each of the pool's kernels needs on these
+    inputs (each input read once, each output written once; for the mask the
+    IoU of every live position's pairs ahead of it, for the continuation the
+    IoU tests its rows need between the pool's end and the end of their
+    walk, :func:`walked_prefix`), and under ``"call"`` the whole pool call's
+    (:func:`pool_call_work`)."""
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    b, n = scores.shape
+    sel, valid, order, live, state = raw["out"]
+    p = raw["p"]
+    words = nms_kernel.mask_stride(p)
+    live_pos = torch.clamp(live.long(), max=p)
+    pairs = int(torch.sum(live_pos * (p - 1) - live_pos * (live_pos - 1) // 2))
+    ran = (state[:, 1] > 0 if "continue" in raw
+           else torch.zeros(b, dtype=torch.bool, device=scores.device))
+    work = {  # order, score and box of a position read, mask words written
+        "select": (b * n * 4 + b * p * 4 + b * 4, 0),
+        "mask": (b * p * (4 + 4 + 16) + b * p * words * 8, IOU_FLOPS * pairs),
+        "scan": (b * p * words * 8 + b * p * 4 + b * 4 * 2 + b * max_out * 5 + b * 8, 0),
+        "call": pool_call_work(boxes, scores, ns, max_out, thr, sel, valid, p, ran)}
+    if "continue" in raw:
+        rank, prefix = walked_prefix(scores, ns, max_out, sel, valid, p, ran)
+        went_on = ran & (prefix > p)
+        rows, flops, past = int(went_on.sum()), 0, 0
+        if rows:
+            bx = boxes if boxes.dim() == 2 else boxes[went_on]
+            sc, rk, picks = scores[went_on], rank[went_on], (sel[went_on], valid[went_on])
+            walk = rk < prefix[went_on][:, None]
+            flops = (nms_work(bx, torch.where(walk, sc, NEG), *picks, thr)[1]
+                     - nms_work(bx, torch.where(rk < p, sc, NEG), *picks, thr)[1])
+            past = int((prefix[went_on] - p).sum())
+        work["continue"] = (b * (8 + 4) + rows * (n - p) * 4 + past * 16
+                            + int(valid[went_on].sum()) * (4 + 16) + rows * max_out * 5,
+                            max(flops, 0))
+    return work
+
+
 def nms_equal(got, want) -> bool:
     import torch
 
     return torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
+def pool_in_graph(boxes, scores, ns, max_out, thr, pool) -> bool:
+    """One pool call captured in a CUDA graph and replayed on the scores with
+    their columns permuted: == plain."""
+    import torch
+
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    static = scores.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nms_kernel.nms_rows(boxes, static, ns, max_out, thr, None, pool)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = nms_kernel.nms_rows(boxes, static, ns, max_out, thr, None, pool)
+    perm = torch.from_numpy(__import__("numpy").random.default_rng(3).permutation(
+        scores.shape[1])).to(scores.device)
+    other = scores[:, perm].contiguous()
+    static.copy_(other)
+    graph.replay()
+    torch.cuda.synchronize()
+    ok = nms_equal(out, nms_ops.batched_greedy_nms(boxes, other, ns, max_out, thr))
+    del graph
+    return ok
+
+
+def pool_site(args, plain_reps=5):
+    """One main-path pool (a captured call of it) on the card: the select
+    kernel == the stable order's head; the pool call == the plain full-width
+    NMS (the rows it continued counted); no host sync under
+    ``torch.cuda.set_sync_debug_mode("error")``; captured in a CUDA graph and
+    replayed on other scores, == plain. Then the old pool call (sort, scan,
+    host check) and the new one timed in turns (old, new, new, old; CUDA
+    events around the calls as callers make them), each kernel's time
+    (events around raw launches) and device time (profiler), plain time and
+    bound."""
+    import torch
+
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    boxes, scores, ns, max_out, thr, pool = pool_call_args(args)
+    want = nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr)
+    counter = nms_kernel.continued_rows("cuda")
+    counter.zero_()
+    new = nms_kernel.nms_rows(boxes, scores, ns, max_out, thr, None, pool)
+    torch.cuda.synchronize()
+    continued = int(counter)
+    if not nms_equal(new, want):
+        raise AssertionError("NMS pool != plain version on a main-path pool")
+    raw = raw_pool(boxes, scores, ns, max_out, thr, pool)
+    raw["all"]()
+    p = raw["p"]
+    head = nms_kernel.stable_order(scores)[:, :p]
+    order = raw["out"][2]
+    select_err = float((order.long() - head.long()).abs().max())
+    if select_err or not nms_equal(raw["out"][:2], want):
+        raise AssertionError("the select kernel != the stable order's head, or the raw "
+                             "launches != plain")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nms_kernel.nms_rows(boxes, scores, ns, max_out, thr, None, pool)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not pool_in_graph(boxes, scores, ns, max_out, thr, pool):
+        raise AssertionError("a pool call replayed from a CUDA graph != plain")
+    new_call = (lambda: nms_kernel.nms_rows(boxes, scores, ns, max_out, thr, None, pool))
+    work = pool_kernel_work(boxes, scores, ns, max_out, thr, raw)
+    old_call = (lambda: old_pool_call(raw, boxes, scores, ns, max_out, pool))
+    *old, ran_out = old_call()
+    if ran_out != bool(continued) or not (ran_out or nms_equal(old, want)):
+        raise AssertionError("the old pool != plain, or it ran out where no row "
+                             "continued")
+    turns = [event_ms(old_call, 50), event_ms(new_call, 50), event_ms(new_call, 50),
+             event_ms(old_call, 50)]
+    orders = torch.zeros_like(scores, dtype=torch.bool).scatter_(1, head.long(), True)
+    full_plain = event_ms(lambda: nms_ops.batched_greedy_nms(boxes, scores, ns, max_out,
+                                                             thr), plain_reps)
+    plain = {"select": event_ms(lambda: nms_kernel.stable_order(scores)[:, :p], 20),
+             "mask": event_ms(lambda: pool_mask_plain(boxes, head, thr), 5),
+             "scan": event_ms(lambda: nms_ops.batched_greedy_nms(
+                 boxes, scores, ns, max_out, thr, active=orders), plain_reps),
+             "continue": full_plain}  # the pool with its continuation: the full rows
+    kernels = {}
+    for k in NMS_KERNELS:
+        if k not in raw:
+            continue
+        b_ms, b_by = bound(*work[k])
+        kernels[k] = dict(ms=event_ms(raw[k], 200), device_ms=device_ms(raw[k]),
+                          plain_ms=plain[k], bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=select_err if k == "select" else 0.0)
+    b_ms, b_by = bound(*work["call"])
+    return dict(pool_call_ms=(turns[1] + turns[2]) / 2,
+                old_pool_call_ms=(turns[0] + turns[3]) / 2, turns_ms=turns,
+                device_ms=device_ms(raw["all"]), kernels=kernels, plain_ms=full_plain,
+                bound_ms=b_ms, bound_by=b_by, picks=int(want[1].sum()), shape=[
+                    scores.shape[0], p], full_shape=list(scores.shape),
+                continued=continued, sync_free=True, graph_replay=True)
+
+
+def pool_mask_plain(boxes, order, thr):
+    """The plain version of the mask: ``[B, P, P]`` bool, IoU of the later
+    position's candidate against the earlier's > thr, upper triangle, in the
+    plain NMS's order of operations."""
+    import torch
+
+    idx = order.long()
+    b, p = idx.shape
+    bx = (boxes[idx] if boxes.dim() == 2
+          else torch.gather(boxes, 1, idx[..., None].expand(b, p, 4)))
+    y1, x1, y2, x2 = bx.unbind(-1)
+    area = (y2 - y1) * (x2 - x1)
+    inter = (torch.clamp(torch.minimum(y2[:, None, :], y2[:, :, None])
+                         - torch.maximum(y1[:, None, :], y1[:, :, None]), min=0.0)
+             * torch.clamp(torch.minimum(x2[:, None, :], x2[:, :, None])
+                           - torch.maximum(x1[:, None, :], x1[:, :, None]), min=0.0))
+    iou = inter / (area[:, None, :] + area[:, :, None] - inter)
+    return (iou > thr) & torch.ones(p, p, dtype=torch.bool, device=boxes.device).triu(1)
+
+
+@contextlib.contextmanager
+def small_pool(pool=8, tile=16):
+    """Within it, every pool on the card takes ``pool`` positions and the
+    continuation tiles of ``tile``: most rows run out and cross tiles."""
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    saved = nms_kernel.SORTED_SCAN_MAX_WIDTH, nms_kernel.TILE
+    nms_kernel.SORTED_SCAN_MAX_WIDTH, nms_kernel.TILE = pool, tile
+    try:
+        yield
+    finally:
+        nms_kernel.SORTED_SCAN_MAX_WIDTH, nms_kernel.TILE = saved
+
+
 def phase_kernels(dev, anchor_corners):
-    """The NMS kernel == its plain version on every case, through nms_rows in
-    both designs and through the pool; times of the synthetic pools."""
+    """The NMS kernels == the plain version on every case, through nms_rows,
+    through it with 8-wide pools and 16-wide tiles (continuations across
+    tiles), and through tpudet's pool; the pools of three cases measured
+    (``pool_site``); a forced run-out continued on the card."""
     import torch
     from torch_nms_cases import nms_case
 
@@ -473,66 +731,35 @@ def phase_kernels(dev, anchor_corners):
     for name, boxes, scores, ns, max_out, thr in nms_cases(anchor_corners):
         args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, ns)]
         want = nms_ops.batched_greedy_nms(*args, max_out, thr)
-        before = dict(nms_kernel.launches_by_path)
+        reset_nms_counts()
         auto = nms_kernel.nms_rows(*args, max_out, thr)
-        with per_pick_only():
-            per_pick = nms_kernel.nms_rows(*args, max_out, thr)
+        with small_pool():
+            small = nms_kernel.nms_rows(*args, max_out, thr)
         pool = nms_kernel.batched_greedy_nms_pretopk(*args, max_out, thr)
         torch.cuda.synchronize()
-        used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
-        for how, got in (("nms_rows", auto), ("per-pick", per_pick), ("pool", pool)):
+        used = nms_counts()
+        for how, got in (("nms_rows", auto), ("small pools", small), ("pool", pool)):
             if not nms_equal(got, want):
-                raise AssertionError(f"NMS kernel ({how}) != plain version on {name}")
+                raise AssertionError(f"NMS kernels ({how}) != plain version on {name}")
         n_picks = want[1].sum(-1)
         if name == "zero_area" and int(n_picks.sum()) != 4:
             raise AssertionError("zero-area boxes: expected 4 distinct picks")
         if name.startswith("nan") and int(n_picks[{"nan_row": 1, "nan_pool": 0}[name]]):
             raise AssertionError(f"{name}: the row holding a NaN selected boxes")
         log(f"nms {name}: scores {tuple(scores.shape)} max_out {max_out} thr {thr}: "
-            f"kernel == plain through nms_rows ({nms_kernel.scan_path(scores.shape[1])}), "
-            f"the per-pick design and the pool; launches by design {used}; "
-            f"{int(n_picks.sum())} picks")
+            f"kernels == plain through nms_rows, with small pools and through the pool; "
+            f"launches {used}; {int(n_picks.sum())} picks")
         if name in ("decode_pool", "mining", "per_row_boxes"):
-            per_pick = per_pick_launch(*args, max_out, thr)
-            ms, pp_device = event_ms(per_pick, 200), device_ms(per_pick)
-            sorted_ms = sorted_device = None
-            if nms_kernel.scan_path(scores.shape[1]) == "sorted_scan":
-                order = nms_kernel.stable_order(args[1])
-                scan = sorted_launch(*args, max_out, thr, order)
-                sorted_ms, sorted_device = event_ms(scan, 200), device_ms(scan)
-            wrapped = event_ms(lambda: nms_kernel.nms_rows(*args, max_out, thr), 50)
-            plain = event_ms(lambda: nms_ops.batched_greedy_nms(*args, max_out, thr), 3)
-            nbytes, flops = nms_work(*args[:2], *want, thr)
-            b_ms, b_by = bound(nbytes, flops)
-            timings[name] = dict(per_pick_ms=ms, per_pick_device_ms=pp_device,
-                                 sorted_ms=sorted_ms, sorted_device_ms=sorted_device,
-                                 wrapper_ms=wrapped, plain_ms=plain, bound_ms=b_ms,
-                                 bound_by=b_by, shape=[*boxes.shape])
-            log(f"nms {name} timing: per-pick kernel {ms:.4f} ms (device "
-                f"{fmt_ms(pp_device, 4)}),"
-                f" sorted scan {sorted_ms if sorted_ms is None else round(sorted_ms, 4)} "
-                f"ms (device {sorted_device}; order given), through the wrapper "
-                f"{wrapped:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
-                f"{nbytes} B, {flops} flop)")
+            t = timings[name] = pool_site((*args, max_out, thr, None,
+                                           nms_kernel.pretopk_pool(max_out)))
+            log_pool(f"case {name}", t)
 
     boxes, scores, ns, max_out, thr = nms_case("exhaustion")  # one cluster fills the pool
     args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, ns)]
-    before = dict(nms_kernel.launches_by_path)
-    sel, val = nms_kernel.batched_greedy_nms_pretopk(*args, max_out, thr)
-    reran = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
-    fsel, fval = nms_kernel.nms_rows(*args, max_out, thr)
-    psel, pval = nms_ops.batched_greedy_nms(*args, max_out, thr)
-    torch.cuda.synchronize()
-    if reran != {"sorted_scan": 1, "per_pick": 1}:
-        raise AssertionError(f"exhaustion scene: expected the pool's sorted scan, then "
-                             f"the full-width rerun, got {reran}")
-    for s2, v2 in ((fsel, fval), (psel, pval)):
-        if not (torch.equal(val, v2) and torch.equal(sel, s2)):
-            raise AssertionError("exhaustion scene: pretopk != full width")
-    if int(val.sum()) != 60:
-        raise AssertionError(f"exhaustion scene: {int(val.sum())} picks, expected 60")
-    log("nms exhaustion: pool exhausted, full-width rerun through the per-pick kernel, "
-        "== full width == plain (60 picks)")
+    full = pool_run_out("exhaustion scene", [*args, max_out, thr])
+    if full["picks"] != 60:
+        raise AssertionError(f"exhaustion scene: {full['picks']} picks, expected 60")
+    timings["exhaustion"] = full
     return timings
 
 
@@ -603,6 +830,7 @@ def assign_launch(args):
         if fn(*ptrs) != 0:
             raise RuntimeError("assignment kernel launch failed")
 
+    launch.outs = outs  # the outputs live as long as the launcher, which holds their pointers
     return launch
 
 
@@ -753,7 +981,7 @@ def timed_requests(model, images):
         t = time.perf_counter()
         results.append(model.test_one_image(img))
         latencies.append((time.perf_counter() - t) * 1e3)
-    counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path,
+    counts = {**nms_counts(),
               "assign": assign_kernel.launches}
     log(f"served {len(images)} requests; kernel launches {counts}")
     return latencies, results, counts
@@ -795,10 +1023,10 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
     images = [rng.uniform(0, 255, (1, *hw_of(size), 3)).astype(np.float32)
               for _ in range(n_requests)]
     latencies, results, counts = timed_requests(model, images)
-    if (counts["nms_rows"] < n_requests or counts["sorted_scan"] < n_requests
-            or counts["assign"]):
-        raise AssertionError("the serving path must launch the NMS kernel's sorted scan "
-                             "once per request and no assignment")
+    if (counts["nms_rows"] < n_requests or counts["scan"] < n_requests
+            or counts["select"] != counts["scan"] or counts["assign"]):
+        raise AssertionError("the serving path must launch the NMS pool (select, mask, "
+                             "scan) at least once per request and no assignment")
     p50 = check_detections(results, latencies,
                            getattr(model, "raw_classes", model.num_classes - 1))
 
@@ -823,19 +1051,17 @@ def serve_requests(dev, model, size, n_requests, check_network=None):
         net_check = (check_network or network_vs_cpu)(model, x, outputs)
 
     profile_requests(model, images[:3])
-    boxes, scores, ns, max_out, thr, order = captured["args"]
+    boxes, scores, ns, max_out, thr, pool = pool_call_args(captured["args"])
     log(f"main-path NMS input: scores {tuple(scores.shape)}, boxes "
-        f"{tuple(boxes.shape)}, the pool's order {tuple(order.shape)}, max_out "
-        f"{max_out}, thr {thr}")
+        f"{tuple(boxes.shape)}, the pool {pool}, max_out {max_out}, thr {thr}")
     return dict(latencies=latencies, p50=p50, counts=counts, network_ms=fwd_ms,
                 decode_ms=dec_ms, network_vs_cpu=net_check, kernel_args=captured["args"])
 
 
 def decode_kernel_vs_plain(model, outputs):
-    """``model._decode_outputs(outputs)`` with the NMS kernel == with its plain
-    version, exactly, on the card. Returns the decode and the kernel wrapper's
-    arguments in it: ``captured["args"]`` of its first call and, where a pool
-    ran out, ``captured["rerun"]`` of the full-width rerun."""
+    """``model._decode_outputs(outputs)`` with the NMS kernels == with their
+    plain version, exactly, on the card. Returns the decode and the kernel
+    wrapper's arguments in it: ``captured["args"]`` of its first call."""
     import torch
 
     from tpudet_torch.ops.cuda import nms_kernel
@@ -844,7 +1070,7 @@ def decode_kernel_vs_plain(model, outputs):
     real_rows = nms_kernel.nms_rows
 
     def capture(*a):
-        captured.setdefault("rerun" if "args" in captured else "args", a)
+        captured.setdefault("args", a)
         return real_rows(*a)
 
     nms_kernel.nms_rows = capture
@@ -872,6 +1098,7 @@ def reset_nms_counts():
     nms_kernel.launches = 0
     for path in nms_kernel.launches_by_path:
         nms_kernel.launches_by_path[path] = 0
+    nms_kernel.continued_rows("cuda").zero_()
 
 
 def profile_requests(model, images):
@@ -971,8 +1198,7 @@ def run_epoch(model, images, gt, warmup: int, lr: float = 0.01):
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches,
-              **nms_kernel.launches_by_path}
+    counts = {"assign": assign_kernel.launches, **nms_counts()}
     steps = len(writer.losses)
     losses = warm + [float(x) for x in writer.losses]
     return dict(losses=losses, mean=mean, counts=counts, steps=steps,
@@ -1066,10 +1292,37 @@ def profile_step(model, images, gt, lr=0.01):
         f"({100 * busy / wall_ms:.1f}%), {len(by_name)} distinct kernels")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  {ms:8.4f} ms/step  {100 * ms / busy:5.1f}%  {name[:90]}")
-    for part in ("assign_kernel", "nms_mask_kernel", "nms_scan_kernel", "nms_rows_kernel"):
+    for part in ("assign_kernel", "nms_select_kernel", "nms_mask_kernel", "nms_scan_kernel",
+                 "nms_continue_kernel"):
         ms = sum(v for k, v in by_name.items() if part in k)
         log(f"  {part}: {ms:.4f} ms/step ({100 * ms / busy:.2f}% of device busy)")
     return dict(wall_ms=wall_ms, busy_ms=busy)
+
+
+def step_host_syncs(model, images, gt, lr=0.01) -> list:
+    """The synchronising CUDA calls of one train step (its batch already on
+    the card), as ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    x, g = model._to_device(images, gt)
+    model.train_step(x, g, lr)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.train_step(x, g, lr)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0][:160] for w in caught
+             if "synchroniz" in str(w.message).lower()
+             and "prototype" not in str(w.message).lower()]
+    log(f"one train step under the sync debug mode: {len(syncs)} synchronising "
+        f"calls {syncs[:4]}")
+    return syncs
 
 
 def phase_train(dev, n_steps=10, warmup=2):
@@ -1087,11 +1340,11 @@ def phase_train(dev, n_steps=10, warmup=2):
     counts, steps, losses = bf16["counts"], bf16["steps"], bf16["losses"]
     log(f"bf16: {warmup} warm-up steps + {steps} in train_one_epoch; kernel launches "
         f"in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
-    if (steps != n_steps or counts["assign"] != steps or counts["nms_rows"] < steps
-            or counts["sorted_scan"] < steps):
-        raise AssertionError(f"the train path must launch the assignment kernel once "
-                             f"and the NMS kernel's sorted scan at least once per step: "
-                             f"{counts}")
+    if (steps != n_steps or counts["assign"] != steps or counts["nms_rows"] != steps
+            or any(counts[k] != steps for k in NMS_KERNELS) or counts["continued"]):
+        raise AssertionError(f"the train path must launch the assignment kernel and "
+                             f"the mining pool's four NMS kernels once per step, with no "
+                             f"row continued: {counts}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -1101,6 +1354,7 @@ def phase_train(dev, n_steps=10, warmup=2):
 
     mining = loss_kernel_vs_plain(model, images, gt)
     bf16["profile"] = profile_step(model, images, gt)
+    bf16["host_syncs"] = step_host_syncs(model, images, gt)
     max_mem = torch.cuda.max_memory_allocated() / 2 ** 30
     del model
     torch.cuda.empty_cache()
@@ -1119,88 +1373,15 @@ def phase_train(dev, n_steps=10, warmup=2):
     return dict(bf16=bf16, fp32=fp32, mining=mining)
 
 
-def nms_pool_timing(args, plain_reps=5):
-    """The NMS kernel's two designs on one main-path pool (a captured nms_rows
-    call with the pool's order), timed in turns: per-pick, sorted scan, sorted
-    scan, per-pick. The sorted scan walks the full rows through the order; the
-    per-pick kernel runs on the pool's gathered copies, as it did before the
-    scan existed. Both == plain. The plain time and the bound are those of the
-    gathered pool."""
-    import torch
-
-    from tpudet_torch.ops import nms as nms_ops
-    from tpudet_torch.ops.cuda import nms_kernel
-
-    boxes, scores, ns, max_out, thr, order = args
-    idx = order.long()
-    top_s = torch.gather(scores, 1, idx).contiguous()
-    top_b = (boxes[idx] if boxes.dim() == 2
-             else torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))).contiguous()
-    want = nms_kernel.plain_rows(*args)
-    new = nms_kernel.nms_rows(*args)
-    with per_pick_only():
-        psel, pval = nms_kernel.nms_rows(top_b, top_s, ns, max_out, thr)
-    old = (torch.where(pval, torch.gather(order, 1, psel.long()), 0), pval)
-    torch.cuda.synchronize()
-    if not (nms_equal(new, want) and nms_equal(old, want)):
-        raise AssertionError("NMS kernel != plain version on a main-path pool")
-    old_launch = per_pick_launch(top_b, top_s, ns, max_out, thr)
-    new_launch = sorted_launch(boxes, scores, ns, max_out, thr, order)
-    turns = [event_ms(old_launch, 200), event_ms(new_launch, 200),
-             event_ms(new_launch, 200), event_ms(old_launch, 200)]
-    device_turns = [device_ms(old_launch), device_ms(new_launch),
-                    device_ms(new_launch), device_ms(old_launch)]
-    pool_call = event_ms(
-        lambda: nms_kernel.batched_greedy_nms_pretopk(boxes, scores, ns, max_out, thr), 50)
-    plain = event_ms(lambda: nms_ops.batched_greedy_nms(top_b, top_s, ns, max_out, thr),
-                     plain_reps)
-    nbytes, flops = nms_work(top_b, top_s, psel, pval, thr)
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(ms=(turns[1] + turns[2]) / 2, per_pick_ms=(turns[0] + turns[3]) / 2,
-                turns_ms=turns, device_ms=mean_ms(device_turns[1], device_turns[2]),
-                per_pick_device_ms=mean_ms(device_turns[0], device_turns[3]),
-                device_turns_ms=device_turns, pool_call_ms=pool_call, plain_ms=plain,
-                bound_ms=b_ms,
-                bound_by=b_by, picks=int(pval.sum()), shape=list(top_s.shape),
-                full_shape=list(scores.shape))
-
-
-def nms_full_timing(args, plain_reps=2):
-    """The per-pick design on one main-path call at full width (wider than the
-    sorted scan takes), timed twice: == plain, kernel ms, plain ms, bound."""
-    import torch
-
-    from tpudet_torch.ops import nms as nms_ops
-    from tpudet_torch.ops.cuda import nms_kernel
-
-    boxes, scores, ns, max_out, thr = args
-    if nms_kernel.scan_path(scores.shape[1]) != "per_pick":
-        raise AssertionError(f"full width {tuple(scores.shape)} is not on the wide path")
-    sel, val = nms_kernel.nms_rows(boxes, scores, ns, max_out, thr)
-    want = nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr)
-    torch.cuda.synchronize()
-    if not nms_equal((sel, val), want):
-        raise AssertionError("NMS kernel != plain version at full width")
-    launch = per_pick_launch(boxes, scores, ns, max_out, thr)
-    turns = [event_ms(launch, 200) for _ in range(2)]
-    plain = event_ms(lambda: nms_ops.batched_greedy_nms(boxes, scores, ns, max_out, thr),
-                     plain_reps)
-    nbytes, flops = nms_work(boxes, scores, sel, val, thr)
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(ms=sum(turns) / 2, turns_ms=turns, device_ms=device_ms(launch, 5),
-                plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, picks=int(val.sum()), shape=list(scores.shape))
-
-
 def run_out_args(args, pool=512, top=3.0):
-    """A pool's NMS input (a captured ``nms_rows`` call) with row 0's top
-    ``pool + 8`` candidates made near-copies of one box, scored from ``top``
-    down to ``top - 1`` (above every other score of the row), so the pool
-    runs out after its first pick and the rows rerun at full width."""
+    """A pool's NMS input (a captured call) with row 0's top ``pool + 8``
+    candidates made near-copies of one box, scored from ``top`` down to
+    ``top - 1`` (above every other score of the row), so the pool runs out
+    after its first pick and the continuation takes row 0 on."""
     import numpy as np
     import torch
 
-    boxes, scores, ns, max_out, thr, _ = args
+    boxes, scores, ns, max_out, thr = args[:5]
     rng = np.random.default_rng(19)
     idx = torch.from_numpy(rng.permutation(boxes.shape[0])[:pool + 8]).to(boxes.device)
     ramp = torch.linspace(0, 0.5, pool + 8, device=boxes.device)
@@ -1212,47 +1393,68 @@ def run_out_args(args, pool=512, top=3.0):
 
 
 def pool_run_out(what, args):
-    """One decode pool call whose pool runs out (``args``: boxes, scores,
-    budgets, max_out, IoU threshold): the pool's sorted scan, then the
-    per-pick kernel at full width, == the plain version; the per-pick design
-    timed at full width."""
+    """One pool call whose pool runs out in row 0 (``args``: boxes, scores,
+    budgets, max_out, IoU threshold, through ``batched_greedy_nms_pretopk``):
+    one launch of each of the four kernels, exactly one row continued, ==
+    the plain full-width version; the continuation timed (events around raw
+    launches, profiler device time) beside its plain version (the plain
+    full-width NMS) and its bound, and the whole pool call."""
     import torch
 
     from tpudet_torch.ops import nms as nms_ops
     from tpudet_torch.ops.cuda import nms_kernel
 
-    before = dict(nms_kernel.launches_by_path)
+    boxes, scores, ns, max_out, thr = args
+    pool = nms_kernel.pretopk_pool(max_out)
+    reset_nms_counts()
     sel, val = nms_kernel.batched_greedy_nms_pretopk(*args)
-    reran = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
-    want = nms_ops.batched_greedy_nms(*args)
     torch.cuda.synchronize()
-    if reran != {"sorted_scan": 1, "per_pick": 1}:
-        raise AssertionError(f"{what} run-out case: expected the pool's sorted scan, then "
-                             f"the full-width rerun, got {reran}")
+    used = nms_counts()
+    want = nms_ops.batched_greedy_nms(*args)
+    if used != {"nms_rows": 1, **dict.fromkeys(NMS_KERNELS, 1), "continued": 1}:
+        raise AssertionError(f"{what} run-out case: expected one launch of each kernel "
+                             f"and one row continued, got {used}")
     if not nms_equal((sel, val), want):
-        raise AssertionError(f"{what} run-out case: pool with its rerun != plain version")
+        raise AssertionError(f"{what} run-out case: the pool and its continuation != "
+                             f"plain version")
     if int(val[0].sum()) < 2:
         raise AssertionError(f"{what} run-out case: row 0 must pick beyond its pool")
-    full = nms_full_timing(args)
-    log(f"{what} NMS run-out case {tuple(args[1].shape)}: the pool ran out in row 0, the "
-        f"per-pick kernel reran at full width, == plain ({int(val.sum())} picks, row 0 "
-        f"{int(val[0].sum())}); per-pick at full width "
-        f"{[round(x, 4) for x in full['turns_ms']]} ms (device time "
-        f"{fmt_ms(full['device_ms'], 4)} ms), plain {full['plain_ms']:.4f} ms, bound "
-        f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
+    raw = raw_pool(boxes, scores, ns, max_out, thr, pool)
+    raw["all"]()
+    torch.cuda.synchronize()
+    if not nms_equal(raw["out"][:2], want):
+        raise AssertionError(f"{what} run-out case: raw launches != plain")
+    turns = [event_ms(raw["continue"], 20) for _ in range(2)]
+    call_ms = event_ms(lambda: nms_kernel.batched_greedy_nms_pretopk(*args), 20)
+    plain = event_ms(lambda: nms_ops.batched_greedy_nms(*args), 2)
+    work = pool_kernel_work(boxes, scores, ns, max_out, thr, raw)
+    b_ms, b_by = bound(*work["continue"])
+    full = dict(ms=sum(turns) / 2, turns_ms=turns, device_ms=device_ms(raw["continue"], 5),
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, picks=int(val.sum()),
+                shape=list(scores.shape), pool_call_ms=call_ms,
+                pool_call_bound_ms=bound(*work["call"])[0], continued=1)
+    log(f"{what} NMS run-out case {tuple(scores.shape)}: row 0 ran out of its pool and "
+        f"the continuation took it on, == plain ({int(val.sum())} picks, row 0 "
+        f"{int(val[0].sum())}); the continuation {[round(x, 4) for x in turns]} ms "
+        f"(device time {fmt_ms(full['device_ms'], 4)} ms), the whole pool call "
+        f"{call_ms:.4f} ms (bound {full['pool_call_bound_ms']:.6f} ms), plain {plain:.4f} "
+        f"ms, the continuation's bound {b_ms:.6f} ms ({b_by})")
     return full
 
 
 def log_pool(what, t):
-    log(f"NMS on {what} {t['shape']} of {t['full_shape']} ({t['picks']} picks), in turns "
-        f"per-pick/sorted/sorted/per-pick {[round(x, 5) for x in t['turns_ms']]} ms: "
-        f"sorted scan {t['ms']:.5f} ms, per-pick {t['per_pick_ms']:.5f} ms "
-        f"({t['per_pick_ms'] / t['ms']:.1f}x); device time (profiler) in turns "
-        f"[{', '.join(fmt_ms(x) for x in t['device_turns_ms'])}] ms: sorted "
-        f"{fmt_ms(t['device_ms'])}, per-pick {fmt_ms(t['per_pick_device_ms'])}; the whole "
-        f"pool call (sort, scan, "
-        f"check) {t['pool_call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
-        f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    kern = "; ".join(f"{k} {v['ms']:.5f} ms (device {fmt_ms(v['device_ms'])}, plain "
+                     f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.6f} {v['bound_by']})"
+                     for k, v in t["kernels"].items())
+    log(f"NMS on {what} {t['shape']} of {t['full_shape']} ({t['picks']} picks): == plain, "
+        f"select == the stable order's head, {t['continued']} rows continued, no host "
+        f"sync, a CUDA "
+        f"graph's replay == plain; the pool call in turns old/new/new/old "
+        f"{[round(x, 5) for x in t['turns_ms']]} ms: new {t['pool_call_ms']:.5f} ms "
+        f"(device {fmt_ms(t['device_ms'])}), old (sort, scan, host check) "
+        f"{t['old_pool_call_ms']:.5f} ms ({t['old_pool_call_ms'] / t['pool_call_ms']:.1f}x); "
+        f"{kern}; plain full width {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']})")
 
 
 def assign_timing(args):
@@ -1487,8 +1689,8 @@ def phase_retina_kernels(dev, serve_args, assign_args):
     """Both kernels at RetinaNet's shapes against their plain versions, timed:
     the assignment at [32, 60, 47961], the decode pool at [20, 47961], and a
     decode whose pool runs out (``torch_nms_cases.retina_decode_case``: row
-    0's top 512 are near-copies of one box, the quota is 10) and reruns the
-    rows at full width."""
+    0's top 512 are near-copies of one box, the quota is 10) and continues
+    row 0 on the card."""
     import torch
     from torch_nms_cases import retina_decode_case
 
@@ -1505,7 +1707,7 @@ def phase_retina_kernels(dev, serve_args, assign_args):
         f"{assign['bound_ms']:.6f} ms ({assign['bound_by']})")
     out["assign"] = assign
 
-    pool = nms_pool_timing(serve_args)
+    pool = pool_site(serve_args)
     log_pool("RetinaNet's decode pool", pool)
     out["decode_pool"] = pool
 
@@ -1594,11 +1796,11 @@ def phase_refine_serve(dev, name, n_requests=10):
                          nms_score_threshold=0.01)
     out = serve_requests(dev, model, REFINE_SIZE, n_requests, network_vs_cpu_normwise)
     counts = out["counts"]
-    if (counts["sorted_scan"] != n_requests or counts["assign"]
-            or not n_requests <= counts["nms_rows"] <= 2 * n_requests):
-        raise AssertionError(f"{name} serving: expected one sorted scan (and a "
-                             f"full-width rerun when a pool runs out) and no assignment "
-                             f"a request, got {counts}")
+    if (counts["scan"] != n_requests or counts["assign"]
+            or counts["nms_rows"] != n_requests):
+        raise AssertionError(f"{name} serving: expected one NMS pool (a "
+                             f"pool that runs out continues on the card) and no "
+                             f"assignment a request, got {counts}")
     del model
     torch.cuda.empty_cache()
     return out
@@ -1625,11 +1827,11 @@ def phase_refine_train(dev, name, n_steps=10, warmup=2):
     log(f"{name} bf16: {warmup} warm-up steps + {steps} in train_one_epoch at lr {lr}; "
         f"kernel launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
     if (steps != n_steps or counts["assign"] != steps
-            or not steps <= counts["nms_rows"] <= 2 * steps
-            or counts["sorted_scan"] != steps):
+            or counts["nms_rows"] != steps
+            or counts["scan"] != steps):
         raise AssertionError(f"the {name} train path must launch the assignment kernel "
                              f"once a step and the NMS kernel's sorted scan once a step "
-                             f"(and the per-pick kernel when a pool runs out): {counts}")
+                             f"(a pool that runs out continues on the card): {counts}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -1659,9 +1861,9 @@ def phase_family_kernels(name, serve_args, captured):
         f"{assign['ms']:.4f} ms (device {fmt_ms(assign['device_ms'], 4)} ms), plain "
         f"{assign['plain_ms']:.4f} ms, bound {assign['bound_ms']:.6f} ms "
         f"({assign['bound_by']})")
-    mining = nms_pool_timing(captured["pool"])
+    mining = pool_site(captured["pool"])
     log_pool(f"{name}'s mining pool (cap 384, IoU 0.7)", mining)
-    decode = nms_pool_timing(serve_args)
+    decode = pool_site(serve_args)
     log_pool(f"{name}'s decode pool", decode)
     return dict(assign=assign, mining_pool=mining, decode_pool=decode)
 
@@ -1671,13 +1873,12 @@ def family_records(serve, train, kern, n_requests):
     assignment, mining and a decode pool)."""
     s_counts, t_counts = serve["counts"], train["run"]["counts"]
     steps = train["run"]["steps"]
-    pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
-                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")
+    pool_keys = POOL_KEYS
     nms = {"launches": s_counts["nms_rows"] + t_counts["nms_rows"],
            "launches_per_request": s_counts["nms_rows"] / n_requests,
            "launches_per_step": t_counts["nms_rows"] / steps,
            "launches_by_path": {k: s_counts[k] + t_counts[k]
-                                for k in ("sorted_scan", "per_pick")},
+                                for k in NMS_COUNT_KEYS},
            "decode_pool": {k: kern["decode_pool"][k] for k in pool_keys},
            "mining_pool": {k: kern["mining_pool"][k] for k in pool_keys}}
     assign = {"launches": t_counts["assign"] + s_counts["assign"],
@@ -1731,10 +1932,10 @@ def phase_ssd512(dev, n_requests=10, n_steps=10, warmup=2):
                          nms_score_threshold=0.01)
     serve = serve_requests(dev, model, SSD512_SIZE, n_requests, network_vs_cpu_normwise)
     counts = serve["counts"]
-    if (counts["sorted_scan"] != n_requests or counts["assign"]
-            or not n_requests <= counts["nms_rows"] <= 2 * n_requests):
-        raise AssertionError(f"SSD512 serving: expected one sorted scan (and a full-width "
-                             f"rerun when a pool runs out) and no assignment a request, "
+    if (counts["scan"] != n_requests or counts["assign"]
+            or counts["nms_rows"] != n_requests):
+        raise AssertionError(f"SSD512 serving: expected one NMS pool (a pool that runs "
+                             f"out continues on the card) and no assignment a request, "
                              f"got {counts}")
     del model
     torch.cuda.empty_cache()
@@ -1750,11 +1951,11 @@ def phase_ssd512(dev, n_requests=10, n_steps=10, warmup=2):
     log(f"SSD512 bf16: {warmup} warm-up steps + {steps} in train_one_epoch; kernel "
         f"launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
     if (steps != n_steps or counts["assign"] != steps
-            or not steps <= counts["nms_rows"] <= 2 * steps
-            or counts["sorted_scan"] != steps):
+            or counts["nms_rows"] != steps
+            or counts["scan"] != steps):
         raise AssertionError(f"the SSD512 train path must launch the assignment kernel "
                              f"once a step and the NMS kernel's sorted scan once a step "
-                             f"(and the per-pick kernel when a pool runs out): {counts}")
+                             f"(a pool that runs out continues on the card): {counts}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -1870,7 +2071,7 @@ def phase_yolo_serve(dev, name, n_requests=10):
         f"{chosen.tolist()}")
     out = serve_requests(dev, model, size, n_requests, network_vs_cpu_normwise)
     counts = out["counts"]
-    if (counts["nms_rows"] != n_requests or counts["sorted_scan"] != n_requests
+    if (counts["nms_rows"] != n_requests or counts["scan"] != n_requests
             or counts["assign"]):
         raise AssertionError(f"{name} serving: expected exactly one NMS launch (the "
                              f"sorted scan) and no assignment a request, got {counts}")
@@ -1934,13 +2135,12 @@ def yolo_records(serve, run, pool, n_requests):
     """A YOLO family's entries of the kernels' JSON record: the decode pool's
     NMS, and no assignment."""
     s_counts, t_counts = serve["counts"], run["counts"]
-    pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
-                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")
+    pool_keys = POOL_KEYS
     nms = {"launches": s_counts["nms_rows"] + t_counts["nms_rows"],
            "launches_per_request": s_counts["nms_rows"] / n_requests,
            "launches_per_step": t_counts["nms_rows"] / run["steps"],
            "launches_by_path": {k: s_counts[k] + t_counts[k]
-                                for k in ("sorted_scan", "per_pick")},
+                                for k in NMS_COUNT_KEYS},
            "score_threshold": serve["score_threshold"],
            "decode_pool": {k: pool[k] for k in pool_keys}}
     assign = {"launches": s_counts["assign"] + t_counts["assign"],
@@ -2012,7 +2212,7 @@ def phase_fcos_serve(dev, n_requests=10):
         f"{conf.shape[1]}: {chosen.tolist()}")
     out = serve_requests(dev, model, hw, n_requests, network_vs_cpu_normwise)
     counts = out["counts"]
-    if (counts["nms_rows"] != n_requests or counts["sorted_scan"] != n_requests
+    if (counts["nms_rows"] != n_requests or counts["scan"] != n_requests
             or counts["assign"]):
         raise AssertionError(f"FCOS serving: expected exactly one NMS launch (the sorted "
                              f"scan) and no assignment a request, got {counts}")
@@ -2067,8 +2267,10 @@ def centernet_model(dev, provider=None, **overrides):
 
 def phase_centernet_serve(dev, n_requests=10):
     """CenterNet at its training script's config in test mode, fp32, at its
-    score threshold 0.1 and top-k 100: no kernel launch a request; one
-    request's decode on the card == on the CPU on the same head outputs;
+    score threshold 0.1 and top-k 100: one launch a request, the select
+    kernel's (the decode's top K), and no other kernel; one request's decode
+    on the card == on the CPU on the same head outputs (the CPU's top K is
+    the stable sort's head);
     the network against the CPU; a profile."""
     import numpy as np
     import torch
@@ -2096,8 +2298,10 @@ def phase_centernet_serve(dev, n_requests=10):
     images = [rng.uniform(0, 255, (1, size, size, 3)).astype(np.float32)
               for _ in range(n_requests)]
     latencies, results, counts = timed_requests(model, images)
-    if counts["nms_rows"] or counts["assign"]:
-        raise AssertionError(f"the CenterNet serving path launches no kernel: {counts}")
+    if (counts["nms_rows"] != n_requests or counts["select"] != n_requests
+            or any(counts[k] for k in ("mask", "scan", "continue", "assign"))):
+        raise AssertionError(f"the CenterNet serving path launches the select kernel once "
+                             f"a request and no other kernel: {counts}")
     for scores, _, _ in results:
         if (len(scores) > model.top_k_results_output
                 or (scores <= model.score_threshold).any()):
@@ -2282,18 +2486,15 @@ def lhrcnn_model(dev, provider=None, **overrides):
 
 
 def record_nms_calls(fn):
-    """``fn()`` with every ``nms_rows`` call's arguments recorded (the
-    sorted scan's order computed where the wrapper computes it). Returns
+    """``fn()`` with every ``nms_rows`` call's arguments recorded. Returns
     the result and the calls."""
     from tpudet_torch.ops.cuda import nms_kernel
 
     calls, real = [], nms_kernel.nms_rows
 
-    def spy(boxes, scores, ns, max_out, thr, order=None):
-        if order is None and nms_kernel.scan_path(scores.shape[1]) == "sorted_scan":
-            order = nms_kernel.stable_order(scores)
-        calls.append((boxes, scores, ns, max_out, thr, order))
-        return real(boxes, scores, ns, max_out, thr, order)
+    def spy(*a):
+        calls.append(a)
+        return real(*a)
 
     nms_kernel.nms_rows = spy
     try:
@@ -2346,8 +2547,8 @@ def phase_lhrcnn_serve(dev, n_requests=10):
     the ``FCOS_QUANTILE`` quantile of a probe image's class scores over its
     500 proposals (a 21-way softmax of random weights sits near 1/21, under
     the script's 0.5). Per request: the sorted scan on the proposal pool [1,
-    1000] of [1, 6818] and on the class rows [20, 500], a per-pick rerun at
-    [1, 6818] only when the proposal pool runs out (counted), no
+    1000] of [1, 6818] (its continuation launched each time, a row continued
+    only when the pool runs out: counted) and on the class rows [20, 500], no
     assignment."""
     import numpy as np
     import torch
@@ -2390,16 +2591,17 @@ def phase_lhrcnn_serve(dev, n_requests=10):
         f"{chosen.tolist()}")
     out = serve_requests(dev, model, (h, w), n_requests, lhrcnn_network_vs_cpu)
     counts = out["counts"]
-    reruns = counts["per_pick"]
-    if (counts["sorted_scan"] != 2 * n_requests or counts["assign"]
-            or counts["nms_rows"] != 2 * n_requests + reruns or reruns > n_requests):
-        raise AssertionError(f"LHRCNN serving: expected two sorted scans (and a per-pick "
-                             f"rerun when the proposal pool runs out) and no assignment "
-                             f"a request, got {counts}")
+    reruns = counts["continued"]
+    if (any(counts[k] != 2 * n_requests for k in ("nms_rows", "select", "mask", "scan"))
+            or counts["continue"] != n_requests or counts["assign"]
+            or reruns > n_requests):
+        raise AssertionError(f"LHRCNN serving: expected two NMS pools a request (the "
+                             f"proposal pool's row continued on the card when it runs "
+                             f"out) and no assignment, got {counts}")
     pool_args = out["kernel_args"]
     if (tuple(pool_args[1].shape) != (1, LHRCNN_ANCHORS)
-            or tuple(pool_args[5].shape) != (1, 1000)):
-        raise AssertionError(f"LHRCNN proposal pool {tuple(pool_args[5].shape)} of "
+            or pool_call_args(pool_args)[5] != 1000):
+        raise AssertionError(f"LHRCNN proposal pool {pool_call_args(pool_args)[5]} of "
                              f"{tuple(pool_args[1].shape)}")
     x = model._images_to_device(np.random.default_rng(1).uniform(
         0, 255, (1, h, w, 3)).astype(np.float32))
@@ -2410,7 +2612,7 @@ def phase_lhrcnn_serve(dev, n_requests=10):
     if tuple(class_args[1].shape) != (20, 500):
         raise AssertionError(f"LHRCNN class rows {tuple(class_args[1].shape)}")
     log(f"LHRCNN serving: {reruns} of {n_requests} requests ran out of the proposal pool "
-        f"and reran at full width; class rows {tuple(class_args[1].shape)}")
+        f"and continued on the card; class rows {tuple(class_args[1].shape)}")
     out.update(score_threshold=thr, calibrated=calibrated, head_peak=peak,
                head_peak_after=after, candidates=chosen.tolist(),
                candidates_at_half=at_half, pool_reruns=reruns, class_args=class_args)
@@ -2460,9 +2662,9 @@ def lhrcnn_image_losses(model, images, gt, phase):
 
 def lhrcnn_phase_run(model, images, gt, phase, warmup=2):
     """``warmup`` steps and a ``train_one_epoch`` of ``LHRCNN_STEPS`` in one
-    phase, from the model's ``global_step``: two NMS launches a step (the
-    sorted scans of the positive and negative pools; a per-pick rerun when
-    a pool runs out, counted), no assignment, a finite loss every step, the
+    phase, from the model's ``global_step``: two NMS pools a step (the
+    positive and negative pools, each select, mask, scan and continuation;
+    rows that ran out counted), no assignment, a finite loss every step, the
     other phase's parameters and velocities bit for bit; a profiled step and
     peak memory.
 
@@ -2492,10 +2694,10 @@ def lhrcnn_phase_run(model, images, gt, phase, warmup=2):
     log(f"LHRCNN {phase} phase, bf16, global_step {start}..{model.global_step - 1}: "
         f"{warmup} warm-up steps + {steps} in train_one_epoch at lr {LHRCNN_LR}; kernel "
         f"launches in the epoch {counts}; losses {[round(x, 4) for x in losses]}")
-    if (steps != LHRCNN_STEPS or counts["assign"] or counts["sorted_scan"] != 2 * steps
-            or counts["nms_rows"] != 2 * steps + counts["per_pick"]):
+    if (steps != LHRCNN_STEPS or counts["assign"]
+            or any(counts[k] != 2 * steps for k in ("nms_rows", *NMS_KERNELS))):
         raise AssertionError(f"the LHRCNN {phase} step must launch the NMS kernel's sorted "
-                             f"scan twice (and the per-pick kernel when a pool runs out) "
+                             f"scan twice (a pool that runs out continues on the card) "
                              f"and no assignment: {counts}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -2563,13 +2765,12 @@ def lhrcnn_losses_vs_plain(model, images, gt):
         loss_kernels_vs_plain("rcnn_losses", lambda: lh.rcnn_losses(
             model.net.roi_head, outputs[2], sample(), float(h), float(w),
             model.num_classes))
-    pos, neg = [c for c in calls if c[5] is not None][:2]  # not the full-width reruns
+    pos, neg = calls[:2]
     if (tuple(pos[0].shape) != (TRAIN_BATCH, LHRCNN_ANCHORS + 60, 4)
             or tuple(neg[0].shape) != (LHRCNN_ANCHORS, 4)
-            or tuple(pos[5].shape) != (TRAIN_BATCH, 512)
-            or tuple(neg[5].shape) != (TRAIN_BATCH, 512)):
-        raise AssertionError(f"LHRCNN sampling pools: {tuple(pos[5].shape)} of "
-                             f"{tuple(pos[0].shape)}, {tuple(neg[5].shape)} of "
+            or pool_call_args(pos)[5] != 512 or pool_call_args(neg)[5] != 512):
+        raise AssertionError(f"LHRCNN sampling pools: {pool_call_args(pos)[5]} of "
+                             f"{tuple(pos[0].shape)}, {pool_call_args(neg)[5]} of "
                              f"{tuple(neg[0].shape)}")
     return pos, neg
 
@@ -2599,8 +2800,8 @@ def phase_lhrcnn_kernels(serve, train):
     """The NMS kernel at LH-RCNN's shapes against its plain version, timed:
     the two sampling pools ([32, 512] of [32, 6878] per-row boxes, of [32,
     6818] shared anchors), the decode's two sorted scans ([1, 1000] of [1,
-    6818]; [20, 500]) and the negative pool forced to run out, rerun at
-    full width by the per-pick kernel ([32, 6818], 256 picks)."""
+    6818]; [20, 500]) and the negative pool forced to run out, its row 0
+    continued on the card ([32, 6818], 256 picks)."""
     out = {}
     for key, what, args in (
             ("positive_pool", "LHRCNN's positive pool (per-row boxes, cap 128)",
@@ -2608,10 +2809,10 @@ def phase_lhrcnn_kernels(serve, train):
             ("negative_pool", "LHRCNN's negative pool (cap 256)", train["neg_args"]),
             ("proposal_pool", "LHRCNN's proposal pool (500 picks)", serve["kernel_args"]),
             ("class_rows", "LHRCNN's class rows", serve["class_args"])):
-        out[key] = nms_pool_timing(args)
+        out[key] = pool_site(args)
         log_pool(what, out[key])
     neg_scores = train["neg_args"][1]
-    out["run_out_full_width"] = pool_run_out("LHRCNN negatives", run_out_args(
+    out["run_out_continuation"] = pool_run_out("LHRCNN negatives", run_out_args(
         train["neg_args"], top=float(neg_scores[0].max()) + 3.0))
     return out
 
@@ -2622,19 +2823,18 @@ def lhrcnn_records(serve, train, kern, n_requests):
     t_counts = {k: train["rpn"]["counts"][k] + train["rcnn"]["counts"][k]
                 for k in s_counts}
     steps = train["rpn"]["steps"] + train["rcnn"]["steps"]
-    pool_keys = ("ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
-                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")
+    pool_keys = POOL_KEYS
     nms = {"launches": s_counts["nms_rows"] + t_counts["nms_rows"],
            "launches_per_request": s_counts["nms_rows"] / n_requests,
            "launches_per_step": t_counts["nms_rows"] / steps,
            "launches_by_path": {k: s_counts[k] + t_counts[k]
-                                for k in ("sorted_scan", "per_pick")},
+                                for k in NMS_COUNT_KEYS},
            "proposal_pool_reruns": serve["pool_reruns"],
            "score_threshold": serve["score_threshold"],
            **{key: {k: kern[key][k] for k in pool_keys} for key in (
                "positive_pool", "negative_pool", "proposal_pool", "class_rows")},
-           "run_out_full_width": {k: kern["run_out_full_width"][k] for k in (
-               "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks", "shape")}}
+           "run_out_continuation": {k: kern["run_out_continuation"][k]
+                                    for k in RUN_OUT_KEYS}}
     assign = {"launches": s_counts["assign"] + t_counts["assign"],
               "launches_per_request": s_counts["assign"] / n_requests,
               "launches_per_step": t_counts["assign"] / steps}
@@ -2841,8 +3041,7 @@ def phase_feed_train(dev, shards, tmp: Path, lr=0.01):
         mean = model.train_one_epoch(lr, writer)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches,
-                  **nms_kernel.launches_by_path}
+        counts = {"assign": assign_kernel.launches, **nms_counts()}
         writer.close()
         profile = profile_feed_step(model, lr)
     finally:
@@ -2861,7 +3060,8 @@ def phase_feed_train(dev, shards, tmp: Path, lr=0.01):
         raise AssertionError(f"event steps {[e['step'] for e in events]}")
     if not all(math.isfinite(x) for x in [warm, mean, *losses]):
         raise AssertionError(f"non-finite loss on the feed: {warm}, {losses}")
-    if counts["assign"] != FEED_STEPS or counts["sorted_scan"] != FEED_STEPS:
+    if (counts["assign"] != FEED_STEPS
+            or any(counts[k] != FEED_STEPS for k in ("nms_rows", *NMS_KERNELS))):
         raise AssertionError(f"each step on the feed must launch the assignment kernel "
                              f"once and the mining pool once: {counts}")
     rate = FEED_STEPS * TRAIN_BATCH / wall
@@ -2917,16 +3117,18 @@ def phase_feed_eval(dev, trained, tmp: Path):
     mAP, aps = evaluate.evaluate_model(model, records, preprocess_config=SSD300_AUGMENTOR)
     torch.cuda.synchronize()
     s_per_image = (time.perf_counter() - t) / len(records)
-    counts = {"nms_rows": nms_kernel.launches, **nms_kernel.launches_by_path,
+    counts = {**nms_counts(),
               "assign": assign_kernel.launches}
     log(f"evaluate_model on {len(records)} mini-set records: VOC07 mAP {mAP:.6f} over "
         f"{len(aps)} classes, {s_per_image:.4f} s/image on the host clock; kernel "
         f"launches {counts}")
     if not (math.isfinite(mAP) and 0.0 <= mAP <= 1.0):
         raise AssertionError(f"mAP {mAP} must be finite and in [0, 1]")
-    if counts["sorted_scan"] != len(records) or counts["assign"]:
-        raise AssertionError(f"evaluation must launch one decode pool per image and no "
-                             f"assignment: {counts}")
+    if (any(counts[k] != len(records) for k in ("nms_rows", *NMS_KERNELS))
+            or counts["assign"]):
+        raise AssertionError(f"evaluation must launch one decode pool per image (rows "
+                             f"that run out continue on the card) and no assignment: "
+                             f"{counts}")
     image, _ = records[0]
     inp, _ = evaluate.eval_preprocess(image, 300, 300)
     x = torch.from_numpy(inp.transpose(2, 0, 1)[None].copy()).to(dev)
@@ -2934,19 +3136,11 @@ def phase_feed_eval(dev, trained, tmp: Path):
         outputs = model.net(model._preprocess(x))
         with_kernel, captured = decode_kernel_vs_plain(model, outputs)
     log(f"evaluation's decode of one image: kernel == plain on the card "
-        f"({int(with_kernel[3].sum())} detections, the pool "
-        f"{'ran out' if 'rerun' in captured else 'held'})")
-    pool = nms_pool_timing(captured["args"])
+        f"({int(with_kernel[3].sum())} detections)")
+    pool = pool_site(captured["args"])
     log_pool("the evaluation's decode pool", pool)
-    full = None
-    if "rerun" in captured:
-        full = nms_full_timing(captured["rerun"])
-        log(f"the evaluation's full-width rerun {full['shape']} ({full['picks']} picks), "
-            f"per-pick: {[round(x, 4) for x in full['turns_ms']]} ms (device time "
-            f"{fmt_ms(full['device_ms'], 4)} ms), plain {full['plain_ms']:.4f} ms, bound "
-            f"{full['bound_ms']:.6f} ms ({full['bound_by']})")
     return dict(mAP=mAP, classes=len(aps), s_per_image=s_per_image, counts=counts,
-                images=len(records), decode_pool=pool, full_width=full)
+                images=len(records), decode_pool=pool)
 
 
 def phase_feed(dev, phase4):
@@ -3069,8 +3263,7 @@ def resident_epoch(model, what, lr=0.01):
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = {"assign": assign_kernel.launches, "nms_rows": nms_kernel.launches,
-              **nms_kernel.launches_by_path}
+    counts = {"assign": assign_kernel.launches, **nms_counts()}
     losses = [float(x) for x in writer.losses]
     rate = RESIDENT_STEPS * TRAIN_BATCH / wall
     log(f"bf16 on the resident set, {what}: {RESIDENT_STEPS} steps, kernel launches "
@@ -3078,7 +3271,7 @@ def resident_epoch(model, what, lr=0.01):
         f"host clock, {start.elapsed_time(end) / RESIDENT_STEPS:.3f} ms/step by CUDA events")
     if len(losses) != RESIDENT_STEPS or not all(math.isfinite(x) for x in [mean, *losses]):
         raise AssertionError(f"the {what} epoch's losses: {losses}")
-    if counts["assign"] != RESIDENT_STEPS or counts["sorted_scan"] != RESIDENT_STEPS:
+    if counts["assign"] != RESIDENT_STEPS or counts["scan"] != RESIDENT_STEPS:
         raise AssertionError(f"each {what} step must launch the assignment kernel once and "
                              f"the mining pool once: {counts}")
     return dict(images_per_s=rate, wall_s=wall, losses=losses, counts=counts,
@@ -3429,7 +3622,7 @@ def dp_one_rank(dev, images, gt, phase4):
                 m.num_train = DP_TIMED_STEPS * TRAIN_BATCH
                 run = run_epoch(m, images, gt, warmup=0)
                 if (run["counts"]["assign"] != DP_TIMED_STEPS
-                        or run["counts"]["sorted_scan"] != DP_TIMED_STEPS
+                        or run["counts"]["scan"] != DP_TIMED_STEPS
                         or not all(np.isfinite(run["losses"]))):
                     raise AssertionError(f"19a's timed steps ({name}): {run}")
                 turns[name].append({k: run[k] for k in (
@@ -3586,9 +3779,9 @@ def dp_resident_rank(rank):
     model.train_one_epoch(0.01, writer)
     torch.cuda.synchronize()
     counts = kernel_counts()
-    # each step ends in the mining pool's host sync, so the gaps between
-    # the steps' writes are their host times; the first step is the
-    # process's first and is left out
+    # the gaps between the steps' writes are the host's times a step (no
+    # host sync in the step; the card can lag up to the loss window's read);
+    # the first step is the process's first and is left out
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     paths = [model.last_epoch]
     model.config = dict(model.config, no_scan_epoch=True)
@@ -3657,7 +3850,7 @@ def phase_data_parallel(dev, phase4):
         raise AssertionError("the two ranks' parameters differ after the padded batch")
     for r in two:
         c = r["counts"]
-        if (c["assign"], c["nms_rows"], c["sorted_scan"]) != (DP_STEPS,) * 3 or \
+        if (c["assign"], c["nms_rows"], c["scan"]) != (DP_STEPS,) * 3 or \
                 r["checked"] != 2 * DP_STEPS:
             raise AssertionError(f"a rank's {DP_STEPS} steps launched {c}, "
                                  f"{r['checked']} calls held against the plain versions")
@@ -3704,7 +3897,7 @@ def phase_data_parallel(dev, phase4):
         if (rank["paths"] != ["scanned", "per-step"]
                 or not np.isfinite(rank["losses"]).all()
                 or len(rank["losses"]) != sum(steps)
-                or [(c["assign"], c["sorted_scan"]) for c in rank["counts"]]
+                or [(c["assign"], c["scan"]) for c in rank["counts"]]
                 != [(s, s) for s in steps]):
             raise AssertionError(f"rank {r}'s resident epochs: {rank}")
     if len({r["digest"] for r in res}) != 1:
@@ -3746,8 +3939,7 @@ DRIVER_RECORDS = 8  # the mini VOC set: one epoch of 4 steps
 def kernel_counts() -> dict:
     from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 
-    return {"nms_rows": nms_kernel.launches, "assign": assign_kernel.launches,
-            **nms_kernel.launches_by_path}
+    return {**nms_counts(), "assign": assign_kernel.launches}
 
 
 def reset_kernel_counts():
@@ -3808,7 +4000,7 @@ def bench_on_card():
     log(f"bench_torch: {result['value']} images/s a step, "
         f"{result['scan_epoch_imgs_per_sec']} scanned, on {result['device']}; "
         f"{steps} steps launched the NMS kernel {counts['nms_rows']} times "
-        f"({counts['sorted_scan']} sorted scans) and the assignment kernel "
+        f"({counts['scan']} sorted scans) and the assignment kernel "
         f"{counts['assign']} times; {seconds:.1f} s")
     return dict(result=result, counts=counts, steps=steps, seconds=seconds)
 
@@ -4131,8 +4323,7 @@ def phase_protocol(dev):
         train_counts = {k: counts[k] - eval_counts[k] for k in counts}
         steps = result["steps"]
         if (steps != PROTOCOL_STEPS or train_counts["assign"] != steps
-                or train_counts["sorted_scan"] != steps
-                or not steps <= train_counts["nms_rows"] <= 2 * steps):
+                or any(train_counts[k] != steps for k in ("nms_rows", *NMS_KERNELS))):
             raise AssertionError(f"{steps} steps of the protocol launched {train_counts} "
                                  f"(evaluations {eval_counts} excluded)")
         widths = {int(a[2].shape[1]) for key, a in run_captured if key == "assign"}
@@ -4144,8 +4335,7 @@ def phase_protocol(dev):
             raise AssertionError(f"{compared} captured calls for {train_counts}")
         # both kernels timed at G = 24 on the first step's inputs
         assign = assign_timing(next(a for key, a in run_captured if key == "assign"))
-        mining = nms_pool_timing(next(a for key, a in run_captured
-                                      if key == "nms_rows" and a[5] is not None))
+        mining = pool_site(next(a for key, a in run_captured if key == "nms_rows"))
         log(f"phase 20 assign at G = {PROTOCOL_GT_PAD}: kernel {assign['ms']:.4f} ms "
             f"(device {fmt_ms(assign['device_ms'], 4)} ms), plain {assign['plain_ms']:.4f} "
             f"ms, bound {assign['bound_ms']:.6f} ms ({assign['bound_by']})")
@@ -4199,8 +4389,8 @@ def phase_protocol(dev):
     log(f"phase 20, {PROTOCOL_NAME} through train_convergence_torch.run_model on "
         f"{PROTOCOL_TRAIN}/{PROTOCOL_TEST} rendered scenes ({render_s:.1f} s to render): "
         f"{steps} steps (curve {[c['step'] for c in curve]}, losses {losses}), "
-        f"{train_counts['assign']} assignments and {train_counts['sorted_scan']} mining-pool "
-        f"scans at G = {PROTOCOL_GT_PAD} ({train_counts['per_pick']} per-pick reruns), "
+        f"{train_counts['assign']} assignments and {train_counts['scan']} mining-pool "
+        f"pools at G = {PROTOCOL_GT_PAD} ({train_counts['continued']} rows continued), "
         f"{compared} calls == plain; evaluations at {[e['step'] for e in evals]}, mAP "
         f"{[e['mAP@0.5_voc07'] for e in evals]}, launches {[e['counts'] for e in run_evals]}")
     log(f"phase 20: resumed from the checkpoint at step {ckpt_step}, the state bit for "
@@ -4226,25 +4416,29 @@ def protocol_record(protocol, key):
     record = {"launches": protocol["counts"][key] + protocol["eval_counts"][key],
               "launches_per_step": protocol["counts"][key] / protocol["steps"],
               "eval_launches": protocol["eval_counts"][key]}
-    timing = protocol["mining_pool" if key == "nms_rows" else "assign"]
-    record.update({k: timing[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                          "bound_by")})
-    if key == "nms_rows":
+    pool = protocol["mining_pool"]
+    if key == "assign":
+        record.update({k: protocol["assign"][k] for k in ("ms", "device_ms", "plain_ms",
+                                                          "bound_ms", "bound_by")})
+    elif key in pool["kernels"]:
+        record.update(pool["kernels"][key])
+    elif key == "nms_rows":
         record["eval_launches_by_path"] = {k: protocol["eval_counts"][k]
-                                           for k in ("sorted_scan", "per_pick")}
-        record.update({k: timing[k] for k in ("shape", "full_shape", "picks")})
+                                           for k in NMS_COUNT_KEYS}
+        record.update({k: pool[k] for k in POOL_KEYS if k != "kernels"})
     return record
 
 
 # ------------------------------------- the protocol of the last four families
-# spec: the assignment kernel's launches a training step, the NMS kernel's
-# sorted scans a training step and an evaluated image by design (a pool that
-# runs out adds a per-pick rerun), and the feed; phase 21 runs the first
+# spec: the assignment kernel's launches a training step, the NMS pools a
+# training step and an evaluated image by design (a row that runs out of its
+# pool continues on the card), and the feed; phase 21 runs the first
 # four, phase 22 the rest
 FAMILY_SPECS = {"LHRCNN": (0, 2, 2, "host"), "YOLOv3-consistent": (0, 0, 1, "resident"),
                 "CenterNet": (0, 0, 0, "resident"), "FCOS": (0, 0, 1, "host"),
                 "YOLOv3": (0, 0, 1, "resident"), "YOLOv2-consistent": (0, 0, 1, "resident"),
                 "RefineDet320-pad60": (1, 1, 1, "host")}
+TOPK_AN_IMAGE = {"CenterNet": 1}  # the decode's top K through the select kernel
 PHASE21_SPECS = ("LHRCNN", "YOLOv3-consistent", "CenterNet", "FCOS")
 PHASE22_SPECS = ("YOLOv3", "YOLOv2-consistent", "RefineDet320-pad60")
 CARRY_SPEC = "CenterNet"
@@ -4295,14 +4489,15 @@ def family_run(tc, name, root: Path):
     if not 0.0 <= result["mAP@0.5_voc07"] <= 1.0 or ev["images"] != FAMILY_TEST:
         raise AssertionError(f"{name}: mAP {result['mAP@0.5_voc07']} on {ev['images']} "
                              f"images")
-    for what, c, n, assigns, scans in (
-            ("training", train, steps, assigns_a_step, scans_a_step),
-            ("the evaluation", ev["counts"], FAMILY_TEST, 0, scans_an_image)):
-        if (c["assign"] != assigns * n or c["sorted_scan"] != scans * n
-                or c["nms_rows"] != c["sorted_scan"] + c["per_pick"]
-                or (not scans and c["nms_rows"])):
+    for what, c, n, assigns, scans, tops in (
+            ("training", train, steps, assigns_a_step, scans_a_step, 0),
+            ("the evaluation", ev["counts"], FAMILY_TEST, 0, scans_an_image,
+             TOPK_AN_IMAGE.get(name, 0))):
+        if (c["assign"] != assigns * n or c["scan"] != scans * n or c["mask"] != c["scan"]
+                or c["nms_rows"] != c["select"] or c["select"] != (scans + tops) * n):
             raise AssertionError(f"{name}: {what} of {n} launched {c}; by design "
-                                 f"{scans} sorted scans and {assigns} assignments each")
+                                 f"{scans} NMS pools, {tops} top-K selections and "
+                                 f"{assigns} assignments each")
     gt_width = int(feeder.gt.shape[1]) if feed == "host" else None
     gt_pad = tc.model_specs()[name][2].get("gt_pad", gt_width)
     if not isinstance(feeder, tc.MemmapFeeder if feed == "host" else DeviceDataset) or (
@@ -4310,7 +4505,7 @@ def family_run(tc, name, root: Path):
         raise AssertionError(f"{name} was fed by {type(feeder).__name__} (gt width "
                              f"{gt_width}), not the spec's {feed} feed (gt_pad {gt_pad})")
     compared = dp_kernels_vs_plain([(key, a) for key, a, _ in captured])
-    if compared != train["nms_rows"] + train["assign"] + ev["counts"]["nms_rows"]:
+    if compared != train["scan"] + train["assign"] + ev["counts"]["scan"]:
         raise AssertionError(f"{name}: {compared} calls captured for {train} and "
                              f"{ev['counts']}")
     del models[:], model, feeder
@@ -4442,7 +4637,7 @@ def families_record(families, key):
                         "eval_launches_per_image": r["eval_counts"][key] / FAMILY_TEST}
         if key == "nms_rows":
             record[name]["eval_launches_by_path"] = {
-                k: r["eval_counts"][k] for k in ("sorted_scan", "per_pick")}
+                k: r["eval_counts"][k] for k in NMS_COUNT_KEYS}
     return record
 
 
@@ -4461,7 +4656,7 @@ def phase_bench_all(dev):
     700x1100, its RPN phase), each with the counts set to 0 just before it and
     read just after: the bench itself raises unless its timed steps launched
     by design; over the whole call every step and request launched by design
-    too (a per-pick rerun only for a pool that ran out); the first captured
+    too (a row that runs out of its pool continues on the card); the first captured
     call of each kernel == its plain version."""
     t0 = time.perf_counter()
     bench = load_script("bench_all_torch")
@@ -4480,8 +4675,8 @@ def phase_bench_all(dev):
         assigns, scans = bench.KERNELS_A_STEP[name]
         want = (assigns * BENCH_ALL_STEPS,
                 scans * BENCH_ALL_STEPS + BENCH_ALL_SERVE_SCANS[name] * BENCH_ALL_REQUESTS)
-        if (counts["assign"], counts["sorted_scan"]) != want or (
-                counts["nms_rows"] != counts["sorted_scan"] + counts["per_pick"]):
+        if (counts["assign"], counts["scan"]) != want or any(
+                counts[k] != counts["scan"] for k in ("nms_rows", "select", "mask")):
             raise AssertionError(f"bench_model({name}) launched {counts}; by design "
                                  f"{want[0]} assignments and {want[1]} sorted scans")
         if not result["loss_finite"] or not result["train_step_tflop"] > 0:
@@ -4514,12 +4709,85 @@ def bench_all_record(bench_all, key):
         timed = r["result"]["kernel_launches"]
         record[name] = {"launches": r["counts"][key],
                         "timed_steps": timed["steps"],
-                        "timed_launches": (timed["assign"] if key == "assign" else
-                                           timed["nms_sorted_scan"] + timed["nms_per_pick"])}
+                        "timed_launches": timed["assign"] if key == "assign" else
+                        timed["nms_continue"] if key == "continue" else timed["nms_scan"]}
         if key == "nms_rows":
             record[name]["launches_by_path"] = {k: r["counts"][k]
-                                                for k in ("sorted_scan", "per_pick")}
+                                                for k in NMS_COUNT_KEYS}
     return record
+
+
+def phase_sync_free(dev, sites):
+    """24. the NMS pool with no host sync: under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronising call
+    raises) ``ssd_loss`` forward and backward at SSD300's training shapes
+    (batch 32, 8828 anchors: the assignment and the mining pool),
+    LH-RCNN's ``rpn_select`` at its driver's 700x1100 (batch 32, 6818
+    anchors: both sampling pools) and ``per_class_nms`` over SSD300's
+    anchors raise nothing, after one warm-up call outside the mode; then
+    the main-path pools that phases 2-15 measured (``pool_site``: each also
+    held == plain, sync-free and replayed from a CUDA graph there), old
+    pool call against new, as one table."""
+    import numpy as np
+    import torch
+    from torch_assign_cases import rand_gt
+
+    from tpudet_torch.heads import lhrcnn as lh
+    from tpudet_torch.heads import ssd as ssd_head
+    from tpudet_torch.models.ssd import SSD300, _ssd_feat_shapes
+    from tpudet_torch.ops import nms as nms_ops
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    anc = ssd_head.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides),
+                                 device=dev)
+    heads = [torch.from_numpy(rng.normal(0, sd, (TRAIN_BATCH, anc.yx.shape[0], c))
+                              .astype(np.float32)).to(dev).requires_grad_()
+             for sd, c in ((2.0, 21), (0.5, 2), (0.5, 2))]
+    gt = torch.from_numpy(rand_gt(rng, TRAIN_BATCH, 60, 10, size=300.0,
+                                  n_valid_min=1)).to(dev)
+    h, w = LHRCNN_CONFIG["data_shape"][:2]
+    lh_anc, keep = lh.build_anchors(-(-h // 32), -(-w // 32), 32.0, h, w, device=dev)
+    pconf = torch.from_numpy((2.0 * rng.normal(size=(TRAIN_BATCH, int(keep.sum()), 2)))
+                             .astype(np.float32)).to(dev)
+    lh_gt = torch.from_numpy(rand_gt(rng, TRAIN_BATCH, 60, 10, size=float(min(h, w)),
+                                     n_valid_min=1)).to(dev)
+    rows = lh.rpn_rows(pconf, lh_anc, lh_gt)
+    corners = torch.cat([anc.y1x1, anc.y2x2], -1).contiguous()
+    class_scores = torch.sigmoid(heads[0][0].detach().T[1:]).contiguous()
+
+    def calls():
+        loss = ssd_head.ssd_loss(*heads, anc, gt, 21, neg_sel_cap=384)
+        torch.autograd.grad(loss, heads)
+        lh.rpn_select(rows, lh_anc)
+        nms_ops.per_class_nms(corners, class_scores, 0.01, 200, 0.45)
+
+    calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"phase 24: ssd_loss forward and backward [{TRAIN_BATCH}, {anc.yx.shape[0]}], "
+        f"rpn_select [{TRAIN_BATCH}, {lh_anc.yx.shape[0]}] and per_class_nms [20, "
+        f"{anc.yx.shape[0]}] ran under the sync debug mode 'error' with no "
+        f"synchronising call")
+    table = {}
+    for site, t in sites.items():
+        table[site] = {k: t[k] for k in ("shape", "full_shape", "old_pool_call_ms",
+                                         "pool_call_ms", "device_ms", "bound_ms",
+                                         "continued")}
+        log(f"  {site:28s} {t['shape']} of {t['full_shape']}: old {t['old_pool_call_ms']:.4f} "
+            f"ms, new {t['pool_call_ms']:.4f} ms (device {fmt_ms(t['device_ms'])} ms), "
+            f"bound {t['bound_ms']:.6f} ms, {t['continued']} rows continued")
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    log(f"phase 24 took {seconds:.1f} s; {card}")
+    return dict(seconds=seconds, sync_free=["ssd_loss forward and backward", "rpn_select",
+                                            "per_class_nms", "each pool call"],
+                sites=table, card=card)
 
 
 def fmt_share(share) -> str:
@@ -4566,7 +4834,7 @@ def main() -> int:
     # 3. serve
     n_requests = 10
     serve = phase_serve(dev, n_requests)
-    serve_nms = nms_pool_timing(serve["kernel_args"])
+    serve_nms = pool_site(serve["kernel_args"])
     log_pool("the serving path's decode pool", serve_nms)
 
     # 4. train
@@ -4574,15 +4842,8 @@ def main() -> int:
     n_steps = train["bf16"]["steps"]
     counts = train["bf16"]["counts"]
     mining = train["mining"]
-    mine_pool = nms_pool_timing(mining["pool"])
+    mine_pool = pool_site(mining["pool"])
     log_pool("the train step's mining pool (cap 384, IoU 0.7)", mine_pool)
-    mine_full = nms_full_timing(mining["full"])
-    log(f"NMS per-pick design on the same mining scores at full width "
-        f"{mine_full['shape']} ({mine_full['picks']} picks): "
-        f"{[round(x, 4) for x in mine_full['turns_ms']]} ms (device time "
-        f"{fmt_ms(mine_full['device_ms'], 4)} ms), plain "
-        f"{mine_full['plain_ms']:.4f} ms, bound {mine_full['bound_ms']:.6f} ms "
-        f"({mine_full['bound_by']})")
     assign = assign_timing(mining["assign"])
     log(f"assign on the train step's input: kernel {assign['ms']:.4f} ms (device time "
         f"{fmt_ms(assign['device_ms'], 4)} ms), plain "
@@ -4613,19 +4874,18 @@ def main() -> int:
     for name, (_, _, _, _, key) in YOLO_RUNS.items():
         y_serve = phase_yolo_serve(dev, name, n_requests)
         y_run = phase_yolo_train(dev, name)
-        y_pool = nms_pool_timing(y_serve["kernel_args"])
+        y_pool = pool_site(y_serve["kernel_args"])
         log_pool(f"{name}'s decode pool", y_pool)
         yolo[key] = dict(serve=y_serve, run=y_run, pool=y_pool,
                          records=yolo_records(y_serve, y_run, y_pool, n_requests))
     # 13. FCOS: serve, train, the NMS kernel on the decode pool and at full width
     fcos_serve = phase_fcos_serve(dev, n_requests)
     fcos_run = phase_fcos_train(dev)
-    fcos_pool = nms_pool_timing(fcos_serve["kernel_args"])
+    fcos_pool = pool_site(fcos_serve["kernel_args"])
     log_pool("FCOS's decode pool", fcos_pool)
     fcos_full = pool_run_out("FCOS", run_out_args(fcos_serve["kernel_args"]))
     fcos_nms = yolo_records(fcos_serve, fcos_run, fcos_pool, n_requests)[0]
-    fcos_nms["run_out_full_width"] = {k: fcos_full[k] for k in (
-        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks", "shape")}
+    fcos_nms["run_out_continuation"] = {k: fcos_full[k] for k in RUN_OUT_KEYS}
     fcos_assign = no_kernel_records(fcos_serve, fcos_run, n_requests)
 
     # 14. CenterNet: serve, train, Adam on the card, out-of-range labels
@@ -4671,6 +4931,18 @@ def main() -> int:
     # 23. tpudet's per-model bench: SSD300 and LH-RCNN through bench_model
     bench_all = phase_bench_all(dev)
     log(json.dumps({"bench_all": bench_all}))
+    # 24. the NMS pool with no host sync, and the main-path pools old and new
+    sites = {"SSD300 mining": mine_pool, "SSD300 decode": serve_nms,
+             "RetinaNet decode": r_kern["decode_pool"],
+             **{f"{name} mining": refine[key]["kernels"]["mining_pool"]
+                for name, (_, _, key) in REFINE_FAMILIES.items()},
+             "SSD512 mining": ssd512["kernels"]["mining_pool"],
+             "LH-RCNN positives": lh_kern["positive_pool"],
+             "LH-RCNN negatives": lh_kern["negative_pool"],
+             "LH-RCNN proposals": lh_kern["proposal_pool"],
+             "FCOS decode": fcos_pool}
+    sync_free = phase_sync_free(dev, sites)
+    log(json.dumps({"sync_free": sync_free}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -4692,7 +4964,7 @@ def main() -> int:
             "train_bf16": {k: run_f[k] for k in (
                 "images_per_s", "step_ms", "losses", "counts", "peak_gib", "profile",
                 "adam", "bad_labels") if k in run_f},
-            **({"decode_pool": fcos_pool, "run_out_full_width": fcos_full}
+            **({"decode_pool": fcos_pool, "run_out_continuation": fcos_full}
                if key == "fcos" else {})}}))
 
     log(json.dumps({key: {
@@ -4737,98 +5009,93 @@ def main() -> int:
                                    ("images_per_s", "step_ms", "losses", "counts")},
                     "train_fp32": {k: train["fp32"][k] for k in
                                    ("images_per_s", "step_ms", "losses", "counts")},
-                    "serve_pool": serve_nms, "mining_pool": mine_pool,
-                    "mining_full_width": mine_full}))
-    records = [
-        {"name": "nms_rows", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
-         "replaces": "tpudet/ops/pallas/nms_kernel.py:86",
-         "launches": (serve["counts"]["nms_rows"] + counts["nms_rows"]
-                      + r_serve["counts"]["nms_rows"] + r_counts["nms_rows"]
-                      + sum(f["records"][0]["launches"] for f in refine.values())
-                      + ssd512["records"][0]["launches"]
-                      + sum(f["records"][0]["launches"] for f in yolo.values())
-                      + fcos_nms["launches"] + lh_nms["launches"]
-                      + f_train["counts"]["nms_rows"] + f_eval["counts"]["nms_rows"]
-                      + sum(c["nms_rows"] for c in res_counts)
-                      + sum(c["nms_rows"] for c in ep_counts)
-                      + sum(c["nms_rows"] for c in dp_counts)
-                      + protocol_record(protocol, "nms_rows")["launches"]
-                      + families_record(families, "nms_rows")["launches"]
-                      + families_record(phase22["families"], "nms_rows")["launches"]
-                      + bench_all_record(bench_all, "nms_rows")["launches"]),
-         "launches_per_request": serve["counts"]["nms_rows"] / n_requests,
-         "launches_per_step": counts["nms_rows"] / n_steps,
-         "max_abs_err": 0.0,  # indices and flags, equal exactly
-         # the main path's design, the sorted bitmask scan, on the decode pool
-         "ms": serve_nms["ms"], "plain_ms": serve_nms["plain_ms"],
-         "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
-         "library_ms": None,
-         "paths": {
-             "sorted_scan": {
-                 "launches": serve["counts"]["sorted_scan"] + counts["sorted_scan"],
-                 "ms": serve_nms["ms"], "device_ms": serve_nms["device_ms"],
-                 "plain_ms": serve_nms["plain_ms"],
-                 "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
-                 "library_ms": None, "mining_ms": mine_pool["ms"],
-                 "mining_device_ms": mine_pool["device_ms"],
-                 "mining_plain_ms": mine_pool["plain_ms"],
-                 "mining_bound_ms": mine_pool["bound_ms"],
-                 "mining_bound_by": mine_pool["bound_by"]},
-             "per_pick": {
-                 "launches": serve["counts"]["per_pick"] + counts["per_pick"],
-                 "ms": serve_nms["per_pick_ms"],
-                 "device_ms": serve_nms["per_pick_device_ms"],
-                 "plain_ms": serve_nms["plain_ms"],
-                 "bound_ms": serve_nms["bound_ms"], "bound_by": serve_nms["bound_by"],
-                 "library_ms": None, "mining_ms": mine_pool["per_pick_ms"],
-                 "mining_device_ms": mine_pool["per_pick_device_ms"],
-                 "full_width_ms": mine_full["ms"],
-                 "full_width_device_ms": mine_full["device_ms"],
-                 "full_width_plain_ms": mine_full["plain_ms"],
-                 "full_width_bound_ms": mine_full["bound_ms"],
-                 "full_width_bound_by": mine_full["bound_by"]}},
-         "retinanet": {
-             "launches": r_serve["counts"]["nms_rows"] + r_counts["nms_rows"],
-             "launches_per_request": r_serve["counts"]["nms_rows"] / n_requests,
-             "launches_per_step": r_counts["nms_rows"] / r_steps,
-             "launches_by_path": {k: r_serve["counts"][k]
-                                  for k in ("sorted_scan", "per_pick")},
-             "decode_pool": {k: r_kern["decode_pool"][k] for k in (
-                 "ms", "device_ms", "per_pick_ms", "per_pick_device_ms", "pool_call_ms",
-                 "plain_ms", "bound_ms", "bound_by", "picks", "shape", "full_shape")},
-             "run_out_full_width": {k: r_kern["full_width"][k] for k in (
-                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks",
-                 "shape")}},
-         # tpudet's per-image kernel's case: per-row boxes [5, 300, 4]
-         "per_row_boxes": timings["per_row_boxes"],
-         **{key: f["records"][0] for key, f in refine.items()},
-         "ssd512": ssd512["records"][0],
-         **{key: f["records"][0] for key, f in yolo.items()},
-         "fcos": fcos_nms, "centernet": cn_records, "lhrcnn": lh_nms,
-         "feed": {"launches": (f_train["counts"]["nms_rows"]
-                               + f_eval["counts"]["nms_rows"]),
-                  "launches_per_step": f_train["counts"]["nms_rows"] / FEED_STEPS,
-                  "launches_per_image": f_eval["counts"]["nms_rows"] / f_eval["images"],
-                  "launches_by_path": {k: f_train["counts"][k] + f_eval["counts"][k]
-                                       for k in ("sorted_scan", "per_pick")},
-                  "eval_decode_pool": {k: f_eval["decode_pool"][k] for k in (
-                      "ms", "device_ms", "per_pick_ms", "pool_call_ms", "plain_ms",
-                      "bound_ms", "bound_by", "picks", "shape", "full_shape")},
-                  "eval_full_width": f_eval["full_width"] and {
-                      k: f_eval["full_width"][k] for k in (
-                          "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "picks",
-                          "shape")}},
-         "resident": {"launches": sum(c["nms_rows"] for c in res_counts),
-                      "launches_per_step": [c["nms_rows"] / res_steps
-                                            for c in res_counts],
-                      "launches_by_path": {k: sum(c[k] for c in res_counts)
-                                           for k in ("sorted_scan", "per_pick")}},
-         "entry_points": entry_point_record(entry_points, "nms_rows"),
-         "data_parallel": data_parallel_record(dp, "nms_rows"),
-         "protocol": protocol_record(protocol, "nms_rows"),
-         "protocol_families": families_record(families, "nms_rows"),
-         "protocol_phase22": families_record(phase22["families"], "nms_rows"),
-         "bench_all": bench_all_record(bench_all, "nms_rows")},
+                    "serve_pool": serve_nms, "mining_pool": mine_pool}))
+    # each kernel's launches over every main-path run of phases 3-23 (the
+    # counts each phase set to 0 just before its run and read just after)
+    main_counts = [serve["counts"], counts, r_serve["counts"], r_counts,
+                   *(c for f in refine.values()
+                     for c in (f["serve"]["counts"], f["train"]["run"]["counts"])),
+                   ssd512["serve"]["counts"], ssd512["train"]["run"]["counts"],
+                   *(c for f in yolo.values() for c in (f["serve"]["counts"],
+                                                         f["run"]["counts"])),
+                   fcos_serve["counts"], fcos_run["counts"], cn_serve["counts"],
+                   cn_run["counts"], lh_serve["counts"], lh_train["rpn"]["counts"],
+                   lh_train["rcnn"]["counts"], f_train["counts"], f_eval["counts"],
+                   *res_counts, *ep_counts, *dp_counts]
+
+    def launches(key):
+        return (sum(c[key] for c in main_counts) + protocol_record(protocol, key)["launches"]
+                + families_record(families, key)["launches"]
+                + families_record(phase22["families"], key)["launches"]
+                + bench_all_record(bench_all, key)["launches"])
+
+    mine_scores = mining["pool"][1]
+    top_p = mine_pool["shape"][1]
+    select_library = event_ms(lambda: torch.topk(mine_scores, top_p, dim=1), 200)
+    nms_replaces = {"select": "tpudet/ops/pallas/nms_kernel.py:242",
+                    "mask": "tpudet/ops/pallas/nms_kernel.py:86",
+                    "scan": "tpudet/ops/pallas/nms_kernel.py:86",
+                    "continue": "tpudet/ops/pallas/nms_kernel.py:268"}
+    lh_run_out = lh_kern["run_out_continuation"]
+    records = []
+    for k in NMS_KERNELS:
+        kern = mine_pool["kernels"][k]  # the train step's mining pool, SSD300
+        rec = {"name": f"nms_{k}", "route": "cuda",
+               "source": "tpudet_torch/ops/cuda/csrc/nms.cu",
+               "replaces": nms_replaces[k], "launches": launches(k),
+               "launches_per_request": serve["counts"][k] / n_requests,
+               "launches_per_step": counts[k] / n_steps,
+               "max_abs_err": kern["max_abs_err"],  # indices and flags, equal exactly
+               "ms": kern["ms"], "device_ms": kern["device_ms"],
+               "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+               "bound_by": kern["bound_by"],
+               "library_ms": select_library if k == "select" else None,
+               "site": f"SSD300 mining pool {mine_pool['shape']} of "
+                       f"{mine_pool['full_shape']}",
+               "sites": {site: t["kernels"].get(k) for site, t in sites.items()}}
+        if k == "continue":
+            rec["run_out"] = {"LH-RCNN negatives": lh_run_out, "RetinaNet decode":
+                              r_kern["full_width"], "FCOS decode": fcos_full}
+        records.append(rec)
+    records[2].update({  # the scan's record carries the pool's per-path details
+        "launches_by_path": {k: launches(k) for k in ("nms_rows", *NMS_COUNT_KEYS)},
+        "pool_call": {site: {k: t[k] for k in ("old_pool_call_ms", "pool_call_ms",
+                                                "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "continued")}
+                      for site, t in sites.items()},
+        "retinanet": {
+            "launches": r_serve["counts"]["nms_rows"] + r_counts["nms_rows"],
+            "launches_per_request": r_serve["counts"]["nms_rows"] / n_requests,
+            "launches_per_step": r_counts["nms_rows"] / r_steps,
+            "launches_by_path": {k: r_serve["counts"][k] for k in NMS_COUNT_KEYS},
+            "decode_pool": {k: r_kern["decode_pool"][k] for k in POOL_KEYS},
+            "run_out_continuation": {k: r_kern["full_width"][k] for k in RUN_OUT_KEYS}},
+        # tpudet's per-image kernel's case: per-row boxes [5, 300, 4]
+        "per_row_boxes": timings["per_row_boxes"],
+        **{key: f["records"][0] for key, f in refine.items()},
+        "ssd512": ssd512["records"][0],
+        **{key: f["records"][0] for key, f in yolo.items()},
+        "fcos": fcos_nms, "centernet": {"select_launches": cn_serve["counts"]["select"],
+                                        "requests": n_requests},
+        "lhrcnn": lh_nms,
+        "feed": {"launches": (f_train["counts"]["nms_rows"]
+                              + f_eval["counts"]["nms_rows"]),
+                 "launches_per_step": f_train["counts"]["nms_rows"] / FEED_STEPS,
+                 "launches_per_image": f_eval["counts"]["nms_rows"] / f_eval["images"],
+                 "launches_by_path": {k: f_train["counts"][k] + f_eval["counts"][k]
+                                      for k in NMS_COUNT_KEYS},
+                 "eval_decode_pool": {k: f_eval["decode_pool"][k] for k in POOL_KEYS}},
+        "resident": {"launches": sum(c["nms_rows"] for c in res_counts),
+                     "launches_per_step": [c["nms_rows"] / res_steps for c in res_counts],
+                     "launches_by_path": {k: sum(c[k] for c in res_counts)
+                                          for k in NMS_COUNT_KEYS}},
+        "entry_points": entry_point_record(entry_points, "nms_rows"),
+        "data_parallel": data_parallel_record(dp, "nms_rows"),
+        "protocol": protocol_record(protocol, "nms_rows"),
+        "protocol_families": families_record(families, "nms_rows"),
+        "protocol_phase22": families_record(phase22["families"], "nms_rows"),
+        "bench_all": bench_all_record(bench_all, "nms_rows")})
+    records.append(
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
          "launches": (counts["assign"] + r_counts["assign"]
@@ -4868,8 +5135,10 @@ def main() -> int:
          "protocol": protocol_record(protocol, "assign"),
          "protocol_families": families_record(families, "assign"),
          "protocol_phase22": families_record(phase22["families"], "assign"),
-         "bench_all": bench_all_record(bench_all, "assign")},
-    ]
+         "bench_all": bench_all_record(bench_all, "assign")})
+    idle = [r["name"] for r in records if not r["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -147,16 +147,17 @@ def _counts():
 
 def _launches(name, dev, before, steps):
     """The kernels' launches since ``before``: the assignments and the NMS
-    kernel's sorted scans must be ``KERNELS_A_STEP``'s a step on the card and
-    none on the CPU; per-pick reruns (pools that ran out) are counted apart."""
+    pools (one sorted scan each) must be ``KERNELS_A_STEP``'s a step on the
+    card and none on the CPU; the pools' continuation launches (one for each
+    pool narrower than its rows) are counted apart."""
     moved = {k: v - before[k] for k, v in _counts().items()}
     assigns, scans = KERNELS_A_STEP.get(name, (0, 0)) if dev.type == "cuda" else (0, 0)
-    if (moved["assign"], moved["sorted_scan"]) != (assigns * steps, scans * steps) or (
-            not scans and moved["per_pick"]):
+    if (moved["assign"], moved["scan"]) != (assigns * steps, scans * steps) or (
+            not scans and moved["continue"]):
         raise RuntimeError(f"{name}: {steps} timed steps launched {moved}; by design "
                            f"{assigns} assignments and {scans} sorted scans a step")
-    return {"steps": steps, "assign": moved["assign"],
-            "nms_sorted_scan": moved["sorted_scan"], "nms_per_pick": moved["per_pick"]}
+    return {"steps": steps, "assign": moved["assign"], "nms_scan": moved["scan"],
+            "nms_continue": moved["continue"]}
 
 
 def _sync(dev):

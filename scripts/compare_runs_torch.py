@@ -2,6 +2,7 @@
 
     python scripts/compare_runs_torch.py NAME [TPUDET_NAME] [--window=1000]
     python scripts/compare_runs_torch.py --free-run[=DIR] [--window=250]
+    python scripts/compare_runs_torch.py --rpn32 [--window=250]
 
 Reads ``.convergence/torch_runs/NAME/`` (the port's ``curve.jsonl``,
 ``eval.jsonl``, ``result.json``) and ``.convergence/runs/TPUDET_NAME/``
@@ -19,6 +20,12 @@ LHRCNN-long's RCNN phase from the free run's first step, tpudet's and the
 port's CPU curves, the port's card rerun from the same state
 (``LHRCNN-long-tpudet-init-rerun``) and tpudet's own run, and the free
 run's classification by the rule that ``PERF.md`` states for it.
+
+``--rpn32`` prints :func:`rpn32_probe`: LHRCNN-long's RCNN-phase windows
+(steps 5000-7000) of ``LHRCNN-long-tpudet-init-rpn32`` (its RPN phase in
+float32), of the bfloat16 run ``LHRCNN-long-tpudet-init`` and of tpudet's
+run, each run's difference from tpudet's in percent, and the probe's
+classification by the rule of ROADMAP's Queue 3.
 """
 
 import json
@@ -33,6 +40,12 @@ CARD_RERUN = "LHRCNN-long-tpudet-init-rerun"
 # or more over tpudet's in every window from FAULT_FROM; it is cleared if
 # the two agree within CLEAR_PCT in every window from CLEAR_FROM
 FAULT_PCT, FAULT_FROM, CLEAR_PCT, CLEAR_FROM = 2.0, 5750, 1.0, 5500
+RPN32 = "LHRCNN-long-tpudet-init-rpn32"
+BF16_RUN = "LHRCNN-long-tpudet-init"
+# the probe's rule: within RPN32_NEAR_PCT of tpudet's in every RCNN window
+# (5000, RPN32_END] is the platforms' bf16 arithmetic; RPN32_FAR_PCT or more
+# above in every one leaves the gap open
+RPN32_NEAR_PCT, RPN32_FAR_PCT, RPN32_START, RPN32_END = 1.0, 2.0, 5000, 7000
 
 
 def _lines(path):
@@ -180,12 +193,46 @@ def free_run(run_dir=None, start=None, width=250, root=os.path.join(ROOT, ".conv
     }
 
 
+def rpn32_probe(width=250, root=os.path.join(ROOT, ".convergence")):
+    """The windows of the float32-RPN probe, the bfloat16 run and tpudet's
+    run: each port run over tpudet's in percent in the RCNN windows
+    (RPN32_START, RPN32_END], the probe's over tpudet's in the RPN windows
+    before them, and the probe's verdict."""
+    curves = {"rpn32": os.path.join(root, "torch_runs", RPN32),
+              "bf16": os.path.join(root, "torch_runs", BF16_RUN),
+              "tpudet": os.path.join(root, "runs", "LHRCNN-long")}
+    win = {key: windows(last_per_step(_lines(os.path.join(path, "curve.jsonl"))), width)
+           for key, path in curves.items()}
+
+    def over_tpudet(key, lo, hi):
+        return {k: round(100 * (v / win["tpudet"][k] - 1), 2)
+                for k, v in win[key].items() if lo < k <= hi and k in win["tpudet"]}
+
+    pct = {key: over_tpudet(key, RPN32_START, RPN32_END) for key in ("rpn32", "bf16")}
+    gaps = list(pct["rpn32"].values())
+    if gaps and max(abs(g) for g in gaps) <= RPN32_NEAR_PCT:
+        verdict = "within_1pct_bf16_arithmetic"
+    elif gaps and min(gaps) >= RPN32_FAR_PCT:
+        verdict = "open_2pct_or_more_above"
+    else:
+        verdict = "between"
+    return {"width": width,
+            "windows": {k: {c: round(win[c][k], 5) for c in curves if k in win[c]}
+                        for k in pct["rpn32"]},
+            "over_tpudet_pct": pct,
+            "rpn_phase_rpn32_over_tpudet_pct": over_tpudet("rpn32", 0, RPN32_START),
+            "verdict": verdict}
+
+
 def main(argv):
     args = [a for a in argv if not a.startswith("--")]
     width = None
     for a in argv:
         if a.startswith("--window="):
             width = int(a.split("=")[1])
+    if "--rpn32" in argv:
+        print(json.dumps(rpn32_probe(width or 250)))
+        return 0
     free = [a for a in argv if a.split("=")[0] == "--free-run"]
     if free:
         run_dir = free[0].split("=", 1)[1] if "=" in free[0] else None

@@ -10,7 +10,11 @@ script has none):
     tpudet's spec (:func:`init_path`, written by ``python
     tests/torch_flax_init.py SPEC``), appending ``weight_decay * global_l2``
     after each chunk to ``wd_l2.jsonl`` in the run's directory; at its end
-    the run's carry copy (below) is written.
+    the run's carry copy (below) is written;
+  * ``LHRCNN-long-tpudet-init-rpn32``: ``LHRCNN-long-tpudet-init`` with its
+    first RPN phase (steps before ``rpn_first_step``) in float32 with TF32
+    off for convolutions and matrix products, then bfloat16 with PyTorch's
+    default TF32 settings from ``rpn_first_step`` on (:func:`rpn_in_float32`).
 
 A carry copy is a trained net small enough to bring back from the card:
 :func:`carry_state` of the final checkpoint's ``state_dict``, written to
@@ -46,6 +50,7 @@ from tpudet_torch.models.base import global_l2  # noqa: E402
 from tpudet_torch.runtime import checkpoint as ckpt  # noqa: E402
 
 INIT_SUFFIX = "-tpudet-init"
+RPN32_SUFFIX = "-rpn32"
 CARRY = "carry.pt"
 STATE_AT = {"step": None}  # --state-at's step
 
@@ -100,12 +105,13 @@ def write_carry(name: str, root: str = tc.CONVERGENCE_ROOT) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def from_tpudet_init(spec: str):
+def from_tpudet_init(spec: str, run: str | None = None):
     """The class of ``spec`` whose initial parameters and statistics are
     :func:`init_path`'s, loaded strictly, and whose epochs log
-    ``weight_decay * global_l2``."""
+    ``weight_decay * global_l2`` into run ``run``'s directory (default
+    ``spec`` + ``-tpudet-init``)."""
     base = tc._load_class(_base_specs()[spec][0])
-    run = spec + INIT_SUFFIX
+    run = run or spec + INIT_SUFFIX
 
     def __init__(self, *args, **kwargs):
         base.__init__(self, *args, **kwargs)
@@ -140,8 +146,45 @@ def from_tpudet_init(spec: str):
                  "train_step": train_step, "__module__": __name__})
 
 
+def set_compute_dtype(model, dtype, conv_tf32: bool):
+    """Every module's ``compute_dtype`` (the model's too) to ``dtype``, TF32
+    for cuDNN convolutions to ``conv_tf32`` and for matrix products off
+    (PyTorch's default). The parameters stay float32: each layer casts its
+    kernel when it runs."""
+    model.compute_dtype = dtype
+    for module in model.net.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = dtype
+    torch.backends.cudnn.allow_tf32 = conv_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@functools.lru_cache(maxsize=None)
+def rpn_in_float32(spec: str):
+    """``spec``'s ``-tpudet-init`` class, built in float32 with TF32 off; at
+    ``rpn_first_step`` it turns to bfloat16 with PyTorch's defaults (TF32
+    convolutions, float32 matrix products), as the spec's own run has."""
+    run = spec + INIT_SUFFIX + RPN32_SUFFIX
+    base = from_tpudet_init(spec, run)
+
+    def __init__(self, *args, **kwargs):
+        base.__init__(self, *args, **kwargs)
+        set_compute_dtype(self, torch.float32, conv_tf32=False)
+
+    def train_step(self, images, gt, lr):
+        if self.global_step >= self.rpn_first_step and self.compute_dtype != torch.bfloat16:
+            set_compute_dtype(self, torch.bfloat16, conv_tf32=True)
+            print(f"\n[{run}] step {self.global_step}: bfloat16 from here", flush=True)
+        return base.train_step(self, images, gt, lr)
+
+    return type(base.__name__ + "Rpn32", (base,),
+                {"__init__": __init__, "train_step": train_step, "__module__": __name__})
+
+
 def __getattr__(attr):
-    # the spec's class path of a -tpudet-init variant: "<module>.<SPEC>-tpudet-init"
+    # the spec's class path of a variant: "<module>.<SPEC>-tpudet-init[-rpn32]"
+    if attr.endswith(INIT_SUFFIX + RPN32_SUFFIX):
+        return rpn_in_float32(attr[:-len(INIT_SUFFIX + RPN32_SUFFIX)])
     if attr.endswith(INIT_SUFFIX):
         return from_tpudet_init(attr[:-len(INIT_SUFFIX)])
     raise AttributeError(attr)
@@ -158,6 +201,9 @@ def model_specs():
         specs[name + "-seed1"] = (cls, size, dict(config, seed=1), lr, steps, schedule)
         specs[name + INIT_SUFFIX] = (f"{__name__}.{name}{INIT_SUFFIX}", size, config, lr,
                                      steps, schedule)
+    cls, size, config, lr, steps, schedule = specs["LHRCNN-long"]
+    name = "LHRCNN-long" + INIT_SUFFIX + RPN32_SUFFIX
+    specs[name] = (f"{__name__}.{name}", size, config, lr, steps, schedule)
     cls, size, config, lr, steps, schedule = specs["PFPNetR"]
     specs["PFPNetR-fp32-2000"] = (cls, size, dict(config, compute_dtype="float32"), lr,
                                   2000, [(0.125, 0.1), (0.875, 1.0)])

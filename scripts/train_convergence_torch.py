@@ -333,8 +333,8 @@ def _write_meta(run_dir, steps, elapsed):
 
 def _evaluate(name, model, records):
     """``evaluate_model`` on ``records``; logs the NMS kernel's launches in
-    it by design (``per_pick``: full-width reruns of decode pools that ran
-    out; the counts move only on the card)."""
+    it by design (each kernel of the pool, ``continue``: the continuation's
+    launches; the counts move only on the card)."""
     from tpudet_torch.ops.cuda import nms_kernel
     from tpudet_torch.runtime import evaluate
 
@@ -438,8 +438,8 @@ def run_model(name: str, steps_scale: float = 1.0, smoke: bool = False,
     threading.Thread(target=_watchdog, daemon=True).start()
 
     eval_state = {"records": None, "last": done_steps}
-    # the NMS kernel's launches in training, by design (``per_pick``: full-width
-    # reruns of training pools that ran out; the counts move only on the card)
+    # the NMS kernels' launches in training, by design (the counts move only on
+    # the card)
     train_launches = dict.fromkeys(nms_kernel.launches_by_path, 0)
 
     def _mid_eval():

@@ -67,8 +67,8 @@ def test_bench_model_on_the_cpu_gives_every_field(bench, monkeypatch):
                            "loss_finite", "kernel_launches", "train_step_tflop", "mfu_pct",
                            "mfu_peak_tflops", "flop_count", "infer_p50_ms", "device"}
     assert result["loss_finite"] is True and result["device"] == "cpu"
-    assert result["kernel_launches"] == {"steps": 1, "assign": 0, "nms_sorted_scan": 0,
-                                         "nms_per_pick": 0}
+    assert result["kernel_launches"] == {"steps": 1, "assign": 0, "nms_scan": 0,
+                                         "nms_continue": 0}
     assert result["train_step_ms"] > 0 and result["infer_p50_ms"] > 0
     assert result["train_step_tflop"] > 0 and result["mfu_pct"] >= 0
     assert result["mfu_peak_tflops"] == 989.4
@@ -112,18 +112,18 @@ def test_step_flops_are_three_forwards_less_the_images_gradient(bench):
 
 def test_launch_counts_are_checked_by_design(bench, monkeypatch):
     """On the card each family's counters must move by its launches a step;
-    a pool's per-pick rerun is reported, not refused, where the family scans."""
+    the pools' continuation launches are reported beside the scans."""
     cuda = torch.device("cuda")
     before = bench._counts()
     with pytest.raises(RuntimeError, match="1 assignments and 1 sorted scans a step"):
         bench._launches("SSD300", cuda, before, 3)
     monkeypatch.setattr(assign_kernel, "launches", assign_kernel.launches + 3)
-    monkeypatch.setitem(nms_kernel.launches_by_path, "sorted_scan",
-                        nms_kernel.launches_by_path["sorted_scan"] + 3)
-    monkeypatch.setitem(nms_kernel.launches_by_path, "per_pick",
-                        nms_kernel.launches_by_path["per_pick"] + 1)
+    monkeypatch.setitem(nms_kernel.launches_by_path, "scan",
+                        nms_kernel.launches_by_path["scan"] + 3)
+    monkeypatch.setitem(nms_kernel.launches_by_path, "continue",
+                        nms_kernel.launches_by_path["continue"] + 3)
     got = bench._launches("SSD300", cuda, before, 3)
-    assert got == {"steps": 3, "assign": 3, "nms_sorted_scan": 3, "nms_per_pick": 1}
+    assert got == {"steps": 3, "assign": 3, "nms_scan": 3, "nms_continue": 3}
     with pytest.raises(RuntimeError, match="0 assignments and 2 sorted scans"):
         bench._launches("LHRCNN", cuda, before, 3)
     with pytest.raises(RuntimeError, match="0 assignments and 0 sorted scans"):

@@ -355,13 +355,20 @@ def test_the_variants_differ_from_their_spec_only_where_named(monkeypatch):
     """``scripts/convergence_variants_torch.py``: every spec and its
     ``-seed1`` (config seed 1, nothing else) and ``-tpudet-init`` (the spec
     with a subclass of its class that loads tpudet's initial weights,
-    nothing else), and PFPNetR in float32 over the spec's first 2000 steps
-    (250 warm-up at 0.1x, 1750 at the base lr)."""
+    nothing else), PFPNetR in float32 over the spec's first 2000 steps
+    (250 warm-up at 0.1x, 1750 at the base lr), and LHRCNN-long's
+    ``-tpudet-init`` with its first RPN phase in float32 (the spec as it
+    is; the class turns its layers' compute dtype at ``rpn_first_step``)."""
     monkeypatch.syspath_prepend(str(REPO / "scripts"))
     variants = importlib.import_module("convergence_variants_torch")
     specs, base = variants.model_specs(), variants.tc.model_specs()
+    rpn32 = "LHRCNN-long-tpudet-init-rpn32"
     assert set(specs) == set(base) | {n + "-seed1" for n in base} | {
-        n + "-tpudet-init" for n in base} | {"PFPNetR-fp32-2000"}
+        n + "-tpudet-init" for n in base} | {"PFPNetR-fp32-2000", rpn32}
+    assert specs[rpn32][1:] == base["LHRCNN-long"][1:]
+    rpn32_cls = variants.tc._load_class(specs[rpn32][0])
+    assert rpn32_cls.__bases__ == (variants.from_tpudet_init("LHRCNN-long", rpn32),)
+    assert {"__init__", "train_step"} <= set(vars(rpn32_cls))
     for name, spec in base.items():
         seeded = specs[name + "-seed1"]
         assert seeded[2] == dict(spec[2], seed=1)
@@ -691,3 +698,55 @@ def test_the_watchdog_exits_a_stalled_run_with_93(tmp_path):
     assert proc.returncode == 93, proc.stdout + proc.stderr
     assert "STALLED: no chunk finished in 0s at step 50" in proc.stdout
     assert "the run ended" not in proc.stdout
+
+
+def test_rpn32_runs_the_first_rpn_phase_in_float32_then_bfloat16(monkeypatch, tmp_path):
+    """``LHRCNN-long-tpudet-init-rpn32``'s class on a bf16 LH-RCNN config
+    (192x320, batch 2, ``rpn_first_step`` 2): every layer computes in
+    float32 with TF32 off for convolutions and matmuls before step 2, in
+    bfloat16 with TF32 convolutions (PyTorch's defaults) from step 2; the
+    parameters stay float32 throughout."""
+    from tpudet_torch.models.lhrcnn import LHRCNN
+
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    variants = importlib.import_module("convergence_variants_torch")
+    config = {"mode": "train", "data_shape": [192, 320, 3],
+              "data_format": "channels_last", "num_classes": 4, "weight_decay": 1e-4,
+              "keep_prob": 0.5, "batch_size": 2, "rpn_first_step": 2,
+              "rcnn_first_step": 5, "rpn_second_step": 7, "nms_score_threshold": 0.2,
+              "nms_max_boxes": 10, "nms_iou_threshold": 0.45, "post_nms_proposal": 500,
+              "compute_dtype": "bfloat16"}
+    images = np.random.default_rng(0).uniform(0, 255, (2, 192, 320, 3)).astype(np.float32)
+    gt = -np.ones((2, 24, 5), np.float32)
+    gt[:, 0] = [96, 160, 60, 80, 3]
+
+    def batches():
+        while True:
+            yield images, gt
+
+    init = tmp_path / "init.pt"
+    torch.save(LHRCNN(config, device="cpu").net.state_dict(), init)
+    monkeypatch.setattr(variants, "init_path", lambda spec: str(init))
+    monkeypatch.setattr(variants.tc, "CONVERGENCE_ROOT", str(tmp_path))
+    monkeypatch.setitem(variants.STATE_AT, "step", None)
+    for flag in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        monkeypatch.setattr(flag, "allow_tf32", flag.allow_tf32)  # restored after
+    seen = []
+    cls = variants.rpn_in_float32("LHRCNN")
+    base_step = cls.__bases__[0].train_step
+
+    def spy(self, images, gt, lr):
+        dtypes = {m.compute_dtype for m in self.net.modules() if hasattr(m, "compute_dtype")}
+        seen.append((self.global_step, dtypes, torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return base_step(self, images, gt, lr)
+
+    monkeypatch.setattr(cls.__bases__[0], "train_step", spy)
+    provider = {"data_shape": [192, 320, 3], "num_train": 6, "num_val": 0,
+                "train_generator": (lambda: None, batches()), "val_generator": None}
+    model = cls(config, provider, device="cpu")
+    model.train_one_epoch(1e-3)
+    f32, bf16 = {torch.float32}, {torch.bfloat16}
+    assert seen == [(0, f32, False, False), (1, f32, False, False),
+                    (2, bf16, True, False)]
+    assert all(p.dtype == torch.float32 for p in model.net.parameters())

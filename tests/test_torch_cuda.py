@@ -34,23 +34,24 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CASES)
 @pytest.mark.parametrize("pretopk", [False, True])
-@pytest.mark.parametrize("path", ["sorted_scan", "per_pick"])
+@pytest.mark.parametrize("path", ["pool", "small_pool"])
 def test_cuda_kernel_equals_plain(cuda_device, monkeypatch, name, pretopk, path):
-    """Both designs: ``per_pick`` lowers the sorted scan's width limit to 0."""
-    if path == "per_pick":
-        monkeypatch.setattr(nms_kernel, "SORTED_SCAN_MAX_WIDTH", 0)
+    """``small_pool`` cuts every pool to 8 positions and the continuation's
+    tile to 16, so most rows run out and continue across several tiles."""
+    if path == "small_pool":
+        monkeypatch.setattr(nms_kernel, "SORTED_SCAN_MAX_WIDTH", 8)
+        monkeypatch.setattr(nms_kernel, "TILE", 16)
     boxes, scores, ns, max_out, thr = nms_case(name)
     cpu = [torch.from_numpy(a) for a in (boxes, scores, ns)]
-    if pretopk:
-        want = nms_kernel.batched_greedy_nms_pretopk(*cpu, max_out, thr)
-    else:
-        want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
+    want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
     fn = nms_kernel.batched_greedy_nms_pretopk if pretopk else nms_kernel.nms_rows
-    taken = path if pretopk else nms_kernel.scan_path(scores.shape[1])
+    kernels = nms_kernel.pool_kernels(scores.shape[1],
+                                      nms_kernel.pretopk_pool(max_out) if pretopk else None)
     before = dict(nms_kernel.launches_by_path)
     sel, val = fn(*(t.to(cuda_device) for t in cpu), max_out, thr)
     torch.cuda.synchronize()
-    assert nms_kernel.launches_by_path[taken] > before[taken]
+    used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    assert used == {k: int(k in kernels) for k in used}
     np.testing.assert_array_equal(val.cpu().numpy(), want[1].numpy())
     np.testing.assert_array_equal(sel.cpu().numpy(), want[0].numpy())
 
@@ -64,6 +65,10 @@ def test_cuda_wrapper_rejects_wrong_dtypes(cuda_device):
     with pytest.raises(TypeError):
         nms_kernel.nms_rows(boxes.double(), scores,
                             torch.zeros(2, dtype=torch.int32, device=cuda_device), 4, 0.5)
+    with pytest.raises(ValueError, match="order"):  # the card selects its pool itself
+        nms_kernel.nms_rows(boxes, scores, torch.zeros(2, dtype=torch.int32,
+                                                       device=cuda_device), 4, 0.5,
+                            torch.zeros((2, 8), dtype=torch.int32, device=cuda_device))
 
 
 def _retina_anchors():
@@ -137,19 +142,22 @@ def test_assign_wrapper_rejects_wrong_dtypes_and_devices(cuda_device):
 @pytest.mark.parametrize("run_out", [False, True])
 def test_retina_decode_pool_equals_plain(cuda_device, run_out):
     """RetinaNet's decode shape [20, 47961] through the pool: the sorted scan on
-    the pool; with ``run_out`` row 0 exhausts its pool and the rows rerun at
-    full width through the per-pick kernel. Equal to the plain version."""
+    the pool; with ``run_out`` row 0 exhausts its pool and the continuation
+    takes it on (one row continued). Equal to the plain version."""
     anc = _retina_anchors()
     corners = torch.cat([anc.y1x1, anc.y2x2], -1).numpy()
     boxes, scores, ns, max_out, thr = retina_decode_case(corners, run_out)
     cpu = [torch.from_numpy(a) for a in (boxes, scores, ns)]
     want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
     before = dict(nms_kernel.launches_by_path)
+    continued = nms_kernel.continued_rows(cuda_device)
+    continued.zero_()
     sel, val = nms_kernel.batched_greedy_nms_pretopk(
         *(t.to(cuda_device) for t in cpu), max_out, thr)
     torch.cuda.synchronize()
     used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
-    assert used == {"sorted_scan": 1, "per_pick": 1 if run_out else 0}
+    assert used == {"select": 1, "mask": 1, "scan": 1, "continue": 1}
+    assert int(continued) == int(run_out)
     np.testing.assert_array_equal(val.cpu().numpy(), want[1].numpy())
     np.testing.assert_array_equal(sel.cpu().numpy(), want[0].numpy())
     if run_out:
@@ -210,7 +218,7 @@ def test_refine_decode_pool_equals_plain(cuda_device, monkeypatch, family):
     before = dict(nms_kernel.launches_by_path)
     got = t_refine.refine_decode(*heads, anc, 21, 0.1, 0.45, 20)
     torch.cuda.synchronize()
-    assert nms_kernel.launches_by_path["sorted_scan"] == before["sorted_scan"] + 1
+    assert nms_kernel.launches_by_path["scan"] == before["scan"] + 1
     monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
     want = t_refine.refine_decode(*heads, anc, 21, 0.1, 0.45, 20)
     assert int(want[3].sum()) > 0
@@ -285,7 +293,7 @@ def test_yolo_decode_pool_equals_plain(cuda_device, monkeypatch, family, consist
     torch.cuda.synchronize()
     assert calls == [(20, 1125 if family == "v2" else 12348)]
     assert nms_kernel.launches == before[0] + 1
-    assert nms_kernel.launches_by_path["sorted_scan"] == before[1]["sorted_scan"] + 1
+    assert nms_kernel.launches_by_path["scan"] == before[1]["scan"] + 1
     monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
     want = _yolo_decode(family, heads, consistent)
     assert int(want[3].sum()) > 20
@@ -377,7 +385,7 @@ def test_fcos_decode_pool_equals_plain(cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert calls == [(19, 20017)]
     assert nms_kernel.launches == before[0] + 1
-    assert nms_kernel.launches_by_path["sorted_scan"] == before[1]["sorted_scan"] + 1
+    assert nms_kernel.launches_by_path["scan"] == before[1]["scan"] + 1
     monkeypatch.setattr(nms_kernel, "nms_rows", nms_kernel.plain_rows)
     want = t_fcos.fcos_decode(heads, 20, 0.55, 0.45, 10)
     assert int(want[3].sum()) > 20
@@ -428,8 +436,7 @@ def _lhrcnn_rows(device, b=4, hw=(448, 704)):
 @pytest.mark.parametrize("pool", ["positive", "negative"])
 def test_lhrcnn_sampling_pools_equal_plain(cuda_device, pool):
     """LH-RCNN's two sampling NMS calls on the card at reduced width, each
-    through its 512-wide pool (one sorted scan, with a per-pick rerun where
-    a pool runs out) and equal to the plain version: the positives over
+    through its 512-wide pool (one select, scan and continuation) and equal to the plain version: the positives over
     per-row boxes [4, 60 + 2265, 4] with per-row budgets ``chosen_pos``, the
     negatives over the shared anchors with budgets ``256 - chosen_pos``."""
     from tpudet_torch.heads import lhrcnn as t_lh
@@ -447,7 +454,7 @@ def test_lhrcnn_sampling_pools_equal_plain(cuda_device, pool):
     before = dict(nms_kernel.launches_by_path)
     got = nms_kernel.batched_greedy_nms_pretopk(boxes.contiguous(), scores, budget, cap, 0.7)
     torch.cuda.synchronize()
-    assert nms_kernel.launches_by_path["sorted_scan"] == before["sorted_scan"] + 1
+    assert nms_kernel.launches_by_path["scan"] == before["scan"] + 1
     want = t_nms.batched_greedy_nms(boxes.cpu(), scores.cpu(), budget.cpu(), cap, 0.7)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
@@ -461,8 +468,8 @@ def test_lhrcnn_proposal_pool_equals_plain(cuda_device, run_out):
     """The decode's proposal NMS: 500 picks through a 1000-wide pool (a
     16-word mask row) of one row of 2265 proposals, the sorted scan on the
     card == the plain version; with ``run_out`` the top 1008 proposals are
-    near-copies of one box, so the pool runs out and the per-pick kernel
-    reruns the row at full width."""
+    near-copies of one box, so the pool runs out and the continuation takes
+    the row on past it."""
     rng = np.random.default_rng(9)
     n = 2265
     yx = rng.uniform(0, 700, (n, 2))
@@ -477,10 +484,13 @@ def test_lhrcnn_proposal_pool_equals_plain(cuda_device, run_out):
            torch.tensor([500], dtype=torch.int32)]
     assert nms_kernel.mask_stride(1000) == 16
     before = dict(nms_kernel.launches_by_path)
+    continued = nms_kernel.continued_rows(cuda_device)
+    continued.zero_()
     got = nms_kernel.batched_greedy_nms_pretopk(*(t.to(cuda_device) for t in cpu), 500, 0.7)
     torch.cuda.synchronize()
     used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
-    assert used == {"sorted_scan": 1, "per_pick": int(run_out)}
+    assert used == {"select": 1, "mask": 1, "scan": 1, "continue": 1}
+    assert int(continued) == int(run_out)
     want = t_nms.batched_greedy_nms(*cpu, 500, 0.7)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
@@ -515,9 +525,8 @@ def test_lhrcnn_train_step_on_the_card(cuda_device, phase, step):
     loss = model.train_step(*model._to_device(images, gt), 0.003)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(loss))
-    assert nms_kernel.launches_by_path["sorted_scan"] == counts[1]["sorted_scan"] + 2
-    assert nms_kernel.launches - counts[0] == 2 + (
-        nms_kernel.launches_by_path["per_pick"] - counts[1]["per_pick"])
+    assert nms_kernel.launches_by_path["scan"] == counts[1]["scan"] + 2
+    assert nms_kernel.launches - counts[0] == 2
     assert assign_kernel.launches == counts[2]
     for k, (p, v) in before.items():
         assert torch.equal(params[k], p) and torch.equal(model.velocity[k], v), k
@@ -561,7 +570,7 @@ def test_ssd300_evaluates_the_mini_voc_set_on_the_card(cuda_device):
                    device=cuda_device)
     before = dict(nms_kernel.launches_by_path)
     mAP, _ = evaluate.evaluate_model(model, records)
-    assert nms_kernel.launches_by_path["sorted_scan"] - before["sorted_scan"] == 8
+    assert nms_kernel.launches_by_path["scan"] - before["scan"] == 8
     assert np.isfinite(mAP) and 0.0 <= mAP <= 1.0
 
 
@@ -657,7 +666,7 @@ def test_ssd300_step_from_a_resident_batch(cuda_device):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(loss)) and model.global_step == 1
     assert assign_kernel.launches == counts[0] + 1
-    assert nms_kernel.launches_by_path["sorted_scan"] == counts[1]["sorted_scan"] + 1
+    assert nms_kernel.launches_by_path["scan"] == counts[1]["scan"] + 1
 
 
 @pytest.mark.cuda
@@ -696,3 +705,175 @@ def test_one_rank_nccl_step_is_the_step_without_a_group(cuda_device, tmp_path):
         mesh_lib.shutdown()
     assert losses == want_losses
     assert [k for k in want if not torch.equal(got[k], want[k])] == []
+
+
+# ------------------------------------------------------------ the pool without a host sync
+def _select_case(name):
+    """``(scores [B, N] float32, p)`` of the select kernel's main-path shapes
+    and edges."""
+    rng = np.random.default_rng(31)
+    if name == "mining":  # SSD300's mining pool: 768 of 8828
+        scores = rng.exponential(1.0, (32, 8828)).astype(np.float32)
+        scores[rng.uniform(size=scores.shape) < 0.05] = t_nms.NEG
+        return scores, 768
+    if name == "retina_decode":  # 512 of RetinaNet's 47961
+        scores = rng.uniform(0, 1, (20, 47961)).astype(np.float32)
+        scores[rng.uniform(size=scores.shape) < 0.3] = t_nms.NEG
+        return scores, 512
+    if name == "ties_across_edge":  # one tenth-step value straddles position 768
+        return np.round(rng.uniform(0, 1, (4, 6000)), 1).astype(np.float32), 768
+    if name == "signed_zeros_nan_inf":
+        vals = np.asarray([-0.0, 0.0, np.nan, np.inf, -np.inf, 0.5, -1e30], np.float32)
+        return rng.choice(vals, (3, 3000)), 1000
+    if name == "dead_rows":  # all dead, and fewer live than the pool
+        scores = rng.uniform(0, 1, (3, 2000)).astype(np.float32)
+        scores[0] = t_nms.NEG
+        scores[1, 100:] = t_nms.NEG
+        return scores, 512
+    if name == "whole_row":  # p == N: the whole stable order
+        return np.round(rng.uniform(0, 1, (5, 300)), 2).astype(np.float32), 300
+    if name == "centernet":  # 100 of 96x96 peaks, most of them 0
+        scores = rng.uniform(0, 1, (1, 96 * 96)).astype(np.float32)
+        scores[rng.uniform(size=scores.shape) < 0.9] = 0.0
+        return scores, 100
+    raise KeyError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mining", "retina_decode", "ties_across_edge",
+                                  "signed_zeros_nan_inf", "dead_rows", "whole_row",
+                                  "centernet"])
+def test_select_kernel_equals_stable_order_head(cuda_device, name):
+    scores, p = _select_case(name)
+    want = nms_kernel.stable_order(torch.from_numpy(scores))[:, :p]
+    before = nms_kernel.launches_by_path["select"]
+    got = nms_kernel.select_top(torch.from_numpy(scores).to(cuda_device), p)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches_by_path["select"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1024, 16])
+def test_run_out_continues_across_tiles_and_counts_the_row(cuda_device, monkeypatch, tile):
+    """The exhaustion scene: its one row uses up its 1024-wide pool and the
+    continuation picks on (in 16-wide tiles: ~11 tiles), == plain, one row
+    continued; a batch of rows that do not run out continues none."""
+    monkeypatch.setattr(nms_kernel, "TILE", tile)
+    continued = nms_kernel.continued_rows(cuda_device)
+    for name, rows in (("exhaustion", 1), ("pretopk", 0), ("nan_row", 0)):
+        boxes, scores, ns, max_out, thr = nms_case(name)
+        cpu = [torch.from_numpy(a) for a in (boxes, scores, ns)]
+        continued.zero_()
+        got = nms_kernel.batched_greedy_nms_pretopk(*(t.to(cuda_device) for t in cpu),
+                                                    max_out, thr)
+        torch.cuda.synchronize()
+        assert int(continued) == rows, name
+        want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _ssd300_loss_inputs(dev, b=8, seed=12):
+    anc = t_ssd.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides), device=dev)
+    rng = np.random.default_rng(seed)
+    heads = [torch.from_numpy(rng.normal(0, s, (b, 8828, c)).astype(np.float32))
+             .to(dev).requires_grad_() for s, c in ((2.0, 21), (0.5, 2), (0.5, 2))]
+    gt = torch.from_numpy(rand_gt(rng, b, 60, 10, size=300.0, n_valid_min=1)).to(dev)
+    return heads, anc, gt
+
+
+@pytest.mark.cuda
+def test_pool_ssd_loss_rpn_select_and_decode_never_sync_the_host(cuda_device):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising
+    call raises): a mining pool call, ``ssd_loss`` forward and backward,
+    LH-RCNN's ``rpn_select`` and ``per_class_nms``, each after one warm-up
+    call outside the mode."""
+    from tpudet_torch.heads import lhrcnn as t_lh
+
+    boxes, scores, ns, max_out, thr = (t.to(cuda_device) if isinstance(t, torch.Tensor)
+                                       else t for t in _mining_pool_case())
+    heads, anc, gt = _ssd300_loss_inputs(cuda_device)
+    lh_anc, rows = _lhrcnn_rows(cuda_device)
+    corners = torch.cat([anc.y1x1, anc.y2x2], -1).contiguous()
+    class_scores = torch.sigmoid(heads[0][0].detach().T[1:]).contiguous()
+
+    def calls():
+        nms_kernel.batched_greedy_nms_pretopk(boxes, scores, ns, max_out, thr)
+        loss = t_ssd.ssd_loss(*heads, anc, gt, 21, neg_sel_cap=384)
+        torch.autograd.grad(loss, heads)
+        t_lh.rpn_select(rows, lh_anc)
+        t_nms.per_class_nms(corners, class_scores, 0.01, 200, 0.45)
+
+    calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _mining_pool_case(b=32, seed=14):
+    """SSD300's mining pool inputs on the CPU: [b, 8828] scores over the
+    shared anchors, budgets under the cap 384, IoU 0.7."""
+    anc = t_ssd.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides))
+    rng = np.random.default_rng(seed)
+    scores = rng.exponential(1.0, (b, 8828)).astype(np.float32)
+    scores[rng.uniform(size=scores.shape) < 0.05] = t_nms.NEG
+    ns = rng.integers(0, 400, b).astype(np.int32)
+    return (torch.cat([anc.y1x1, anc.y2x2], -1).contiguous(), torch.from_numpy(scores),
+            torch.from_numpy(ns), 384, 0.7)
+
+
+@pytest.mark.cuda
+def test_pool_call_replays_in_a_cuda_graph(cuda_device):
+    """One mining pool call captured in a CUDA graph, replayed on a second
+    set of scores copied into its input: == plain, and the wrapper counts
+    the capture once, not the replays."""
+    boxes, scores, ns, max_out, thr = _mining_pool_case()
+    _, other, _, _, _ = _mining_pool_case(seed=15)
+    boxes, ns = boxes.to(cuda_device), ns.to(cuda_device)
+    static = scores.to(cuda_device)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up: build, load, the counter
+        nms_kernel.batched_greedy_nms_pretopk(boxes, static, ns, max_out, thr)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = nms_kernel.launches
+    with torch.cuda.graph(graph):
+        sel, val = nms_kernel.batched_greedy_nms_pretopk(boxes, static, ns, max_out, thr)
+    for src in (other, scores):
+        static.copy_(src.to(cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = t_nms.batched_greedy_nms(boxes.cpu(), src, ns.cpu(), max_out, thr)
+        assert torch.equal(val.cpu(), want[1]) and torch.equal(sel.cpu(), want[0])
+    assert nms_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_centernet_top_k_takes_the_select_kernel(cuda_device, monkeypatch):
+    """``centernet_decode``'s top 100 of a 96x96 map on the card: one select
+    launch, whose picks == the sort's head of the same scores."""
+    from tpudet_torch.heads import centernet as t_center
+
+    rng = np.random.default_rng(16)
+    heads = [torch.from_numpy(rng.normal(0, s, (c, 96, 96)).astype(np.float32))
+             .to(cuda_device) for s, c in ((2.0, 20), (0.3, 2), (3.0, 2))]
+    seen = []
+    real = nms_kernel.select_top
+    monkeypatch.setattr(nms_kernel, "select_top",
+                        lambda s, p: seen.append((s, real(s, p))) or seen[-1][1])
+    before = nms_kernel.launches_by_path["select"]
+    got = t_center.centernet_decode(*heads, 0.1, 100)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches_by_path["select"] == before + 1 and len(seen) == 1
+    flat, top = seen[0]
+    assert top.shape == (1, 100)
+    assert torch.equal(top.cpu(), nms_kernel.stable_order(flat.cpu())[:, :100])
+    assert int((flat == 0).sum()) > 100  # most cells are not peaks: ties at 0
+    assert all(bool(torch.isfinite(g).all()) for g in got[:2])

@@ -243,6 +243,8 @@ def test_pretopk_equals_pallas_pretopk(name):
 
 
 def test_pretopk_exhaustion_reruns_full_width(monkeypatch):
+    """On the CPU the pool's plain version runs out and the rows rerun at full
+    width; on the card the same row continues past its 1024-wide pool."""
     calls = []
     real = nms_kernel.nms_rows
 
@@ -254,6 +256,9 @@ def test_pretopk_exhaustion_reruns_full_width(monkeypatch):
     sel, val = _port(*nms_case("exhaustion"), pretopk=True)
     assert calls == [(1200, 1024), (1200, None)]  # the pool's order, then full width
     assert int(val.sum()) == 60
+    pool = nms_kernel.pretopk_pool(512)
+    assert nms_kernel.pool_width(1200, pool) == 1024
+    assert nms_kernel.pool_kernels(1200, pool) == ("select", "mask", "scan", "continue")
 
 
 def test_zero_area_boxes_terminate_without_duplicates():
@@ -392,11 +397,17 @@ def test_iou_is_symmetric_bit_for_bit(corner_and_size):
     assert torch.equal(iou.view(torch.int32), iou.T.contiguous().view(torch.int32))
 
 
-@pytest.mark.parametrize("width,path", [(1, "sorted_scan"), (512, "sorted_scan"),
-                                        (768, "sorted_scan"), (1024, "sorted_scan"),
-                                        (1025, "per_pick"), (8828, "per_pick")])
-def test_scan_path_routes_by_width(width, path):
-    assert nms_kernel.scan_path(width) == path
+_POOL = ("select", "mask", "scan")
+
+
+@pytest.mark.parametrize("width,kernels", [(1, _POOL), (512, _POOL), (768, _POOL),
+                                           (1024, _POOL), (1025, _POOL + ("continue",)),
+                                           (8828, _POOL + ("continue",))])
+def test_scan_path_routes_by_width(width, kernels):
+    """``nms_rows`` on the card: rows up to the scan's 1024 candidates are one
+    pool; wider rows continue past their first 1024 positions."""
+    assert nms_kernel.pool_kernels(width) == kernels
+    assert nms_kernel.pool_width(width) == min(width, 1024)
 
 
 _score = st.one_of(st.sampled_from([float("nan"), -0.0, 0.0, 0.5, 1.0, -1e30,

@@ -40,7 +40,7 @@ from tpudet_torch.nn.backbones.dla import DLABackbone, DLAUp
 from tpudet_torch.nn.layers import ConvBN, max_pool_same
 from tpudet_torch.ops import losses as loss_ops
 from tpudet_torch.ops import matching
-from tpudet_torch.ops.cuda.nms_kernel import stable_order
+from tpudet_torch.ops.cuda import nms_kernel
 
 STRIDE = 4.0
 
@@ -150,7 +150,14 @@ def centernet_decode(keypoints, offset, size, score_threshold: float, top_k: int
     byx = torch.stack([yy, xx], -1).reshape(-1, 2) + offset.permute(1, 2, 0).reshape(-1, 2)
     bhw = size.permute(1, 2, 0).reshape(-1, 2)
     boxes = torch.cat([byx - bhw / 2.0, byx + bhw / 2.0], -1) * stride
-    top = stable_order(scores[None])[0, :min(top_k, h * w)].long()
+    # the head of the stable descending order (tpudet's lax.top_k): on the
+    # card the select kernel where K fits it
+    k = min(top_k, h * w)
+    flat = scores[None].to(torch.float32).contiguous()
+    if k <= nms_kernel.SORTED_SCAN_MAX_WIDTH:
+        top = nms_kernel.select_top(flat, k)[0].long()
+    else:
+        top = nms_kernel.stable_order(flat)[0, :k].long()
     top_scores = scores[top]
     return (top_scores, boxes[top], category[top].to(torch.int32),
             top_scores > score_threshold)
