@@ -1,6 +1,11 @@
 """Drive the PyTorch/CUDA port (tpudet_torch) on one NVIDIA GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--old-nms NMS_CU]
+
+``--old-nms`` builds an earlier ``csrc/nms.cu`` with the same C entries
+beside the package's, holds its pool == plain at every site, and times its
+select and continuation in turns with the package's on the same inputs
+(phase 24 prints them as one table).
 
 Phases, each raising on failure (nothing is caught):
   1. card and build: the card's name and power limit, then nvcc builds every
@@ -93,7 +98,9 @@ Phases, each raising on failure (nothing is caught):
      script's score threshold 0.1 and top-k 100 (BatchNorm statistics from 4
      seeded images where the initial ones let the heads run away), one select
      launch a request (the top K), the decode on the card == on the CPU on the same
-     head outputs, the network against the CPU; train 12 bf16 steps at batch
+     head outputs, the top K's select timed as a site of its own (== the stable
+     order's head, beside ``torch.topk``), the network against the CPU; train
+     12 bf16 steps at batch
      15, lr 0.001, with no kernel launch, a finite and falling loss, a
      profiled step and peak memory; one Adam update on the card against the
      CPU's on the same gradients; out-of-range labels leave the loss finite
@@ -249,6 +256,7 @@ ASSIGN_PAIR_FLOPS = 15
 TRAIN_BATCH = 32
 PROFILE_PAD_S = 0.01  # host pause at each end of a kernel's profiler session
 PROFILE_SESSIONS = 3  # profiler sessions tried before a device time is "not measured"
+OLD_NMS = {}  # "lib": an earlier csrc/nms.cu (``--old-nms``), timed in turns with the package's
 
 
 def log(msg):
@@ -403,6 +411,115 @@ def nms_counts() -> dict:
             "continued": int(nms_kernel.continued_rows("cuda"))}
 
 
+def raw_select(scores, p, lib=None):
+    """The select kernel on ``scores`` through its C entry (of the library
+    ``lib``, else the package's), buffers allocated once: ``{"select":
+    launcher, "order": [B, p], "live": [B]}``."""
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    b, n = scores.shape
+    i32 = dict(dtype=torch.int32, device=scores.device)
+    order, live = torch.empty((b, p), **i32), torch.empty((b,), **i32)
+    fn = (lib.tpudet_nms_select if lib is not None
+          else nms_kernel._library("tpudet_nms_select", scores.device))
+    args = (scores.data_ptr(), b, n, p, order.data_ptr(), live.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if fn(*args) != 0:
+            raise RuntimeError("NMS select kernel launch failed")
+    return {"select": launch, "order": order, "live": live}
+
+
+def topk_times(scores, p) -> dict:
+    """``torch.topk`` of the same rows (the library call the select stands
+    beside; the port never calls it): events and device time."""
+    import torch
+
+    def lib():
+        return torch.topk(scores, p, dim=1)
+    return dict(library_ms=event_ms(lib, 200), library_device_ms=device_ms(lib))
+
+
+def select_site(scores, p):
+    """The select kernel alone on a main-path input (CenterNet's top K): ==
+    the stable order's head; its time (events around raw launches), device
+    time, the plain version's (the stable sort's head), ``torch.topk``'s on
+    the same rows, its bound (the scores read once, the order and the live
+    counts written once), and with ``--old-nms`` the earlier select in turns
+    (``old``)."""
+    import torch
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    b, n = scores.shape
+    raw = raw_select(scores, p)
+    raw["select"]()
+    torch.cuda.synchronize()
+    head = nms_kernel.stable_order(scores)[:, :p]
+    err = float((raw["order"].long() - head.long()).abs().max())
+    if err:
+        raise AssertionError("the select kernel != the stable order's head")
+    b_ms, b_by = bound(b * n * 4 + b * p * 4 + b * 4, 0)
+    out = dict(ms=event_ms(raw["select"], 200), device_ms=device_ms(raw["select"]),
+               plain_ms=event_ms(lambda: nms_kernel.stable_order(scores)[:, :p], 20),
+               **topk_times(scores, p), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               shape=[b, p], full_shape=[b, n])
+    if OLD_NMS:
+        old = raw_select(scores, p, OLD_NMS["lib"])
+        old["select"]()
+        torch.cuda.synchronize()
+        if not torch.equal(old["order"].long(), head.long()):
+            raise AssertionError("the earlier select != the stable order's head")
+        out["old"] = old_vs_new(old["select"], raw["select"], 200)
+    return out
+
+
+def old_nms_build(source, name="old_nms") -> Path:
+    """``source``, an earlier ``csrc/nms.cu`` with the same C entries, built
+    with the package's nvcc flags into ``build/old_nms/{name}.so``."""
+    from tpudet_torch.ops.cuda import build
+
+    out = build.BUILD_DIR.parent / "old_nms" / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    return out
+
+
+def old_nms_load(path):
+    """The earlier library at ``path``, loaded beside the package's, its C
+    entries typed as the package's and its ``tpudet_nms_init`` run."""
+    import ctypes
+
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in nms_kernel._ARGTYPES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.tpudet_nms_init() != 0:
+        raise RuntimeError(f"tpudet_nms_init failed in {path}")
+    return lib
+
+
+def old_vs_new(old, new, reps):
+    """One kernel of the earlier library (``old``, a raw launcher) and the
+    package's (``new``) on the same inputs, in turns (old, new, new, old):
+    CUDA events around ``reps`` launches each, then profiler device time in
+    the same order."""
+    ev = [event_ms(f, reps) for f in (old, new, new, old)]
+    dev = [device_ms(f, min(reps, 20)) for f in (old, new, new, old)]
+    mean = (lambda a, b: None if a is None or b is None else (a + b) / 2)
+    return dict(old_ms=(ev[0] + ev[3]) / 2, new_ms=(ev[1] + ev[2]) / 2, turns_ms=ev,
+                old_device_ms=mean(dev[0], dev[3]), new_device_ms=mean(dev[1], dev[2]),
+                device_turns_ms=dev)
+
+
 def pool_call_args(args):
     """``(boxes, scores, num_select, max_out, iou_threshold, pool)`` of a
     captured ``nms_rows`` call of a pool (the card takes no order) or of a
@@ -414,12 +531,13 @@ def pool_call_args(args):
     return boxes, scores, ns, max_out, thr, pool
 
 
-def raw_pool(boxes, scores, ns, max_out, thr, pool=None, tile=None):
-    """The pool's kernels on these inputs through their C entries, with
-    buffers allocated once, so the wrapper's Python work stays out of their
-    times: ``{kernel: launcher}`` for ``NMS_KERNELS`` (``continue`` where the
-    pool is narrower than the rows), ``"all"`` (each in order), ``"p"`` and
-    ``"out"`` (sel, valid, order, live, row state after ``all``)."""
+def raw_pool(boxes, scores, ns, max_out, thr, pool=None, tile=None, lib=None):
+    """The pool's kernels on these inputs through their C entries (of the
+    library ``lib``, else the package's), with buffers allocated once, so the
+    wrapper's Python work stays out of their times: ``{kernel: launcher}``
+    for ``NMS_KERNELS`` (``continue`` where the pool is narrower than the
+    rows), ``"all"`` (each in order), ``"p"`` and ``"out"`` (sel, valid,
+    order, live, row state after ``all``)."""
     import torch
 
     from tpudet_torch.ops.cuda import nms_kernel
@@ -451,7 +569,8 @@ def raw_pool(boxes, scores, ns, max_out, thr, pool=None, tile=None):
     # every buffer stays referenced while the launchers live: they hold raw pointers
     out = {"p": p, "out": (sel, valid, order, live, state), "buffers": (mask, continued)}
     for k in NMS_KERNELS if cont else NMS_KERNELS[:3]:
-        fn = nms_kernel._library(f"tpudet_nms_{k}", dev)
+        fn = (getattr(lib, f"tpudet_nms_{k}") if lib is not None
+              else nms_kernel._library(f"tpudet_nms_{k}", dev))
 
         def launch(fn=fn, a=ptrs[k], k=k):
             if fn(*a) != 0:
@@ -617,7 +736,9 @@ def pool_site(args, plain_reps=5):
     host check) and the new one timed in turns (old, new, new, old; CUDA
     events around the calls as callers make them), each kernel's time
     (events around raw launches) and device time (profiler), plain time and
-    bound."""
+    bound, and beside the select ``torch.topk`` on the same rows. With
+    ``--old-nms`` the earlier library's pool == plain too, and its select
+    and continuation timed in turns with the package's (``old``)."""
     import torch
 
     from tpudet_torch.ops import nms as nms_ops
@@ -672,7 +793,18 @@ def pool_site(args, plain_reps=5):
         b_ms, b_by = bound(*work[k])
         kernels[k] = dict(ms=event_ms(raw[k], 200), device_ms=device_ms(raw[k]),
                           plain_ms=plain[k], bound_ms=b_ms, bound_by=b_by,
-                          max_abs_err=select_err if k == "select" else 0.0)
+                          max_abs_err=select_err if k == "select" else 0.0,
+                          **(topk_times(scores, p) if k == "select" else {}))
+    if OLD_NMS:
+        old_raw = raw_pool(boxes, scores, ns, max_out, thr, pool, lib=OLD_NMS["lib"])
+        old_raw["all"]()
+        torch.cuda.synchronize()
+        if not (torch.equal(old_raw["out"][2].long(), head.long())
+                and nms_equal(old_raw["out"][:2], want)):
+            raise AssertionError("the earlier library's pool != plain")
+        for k in ("select", "continue"):
+            if k in raw:
+                kernels[k]["old"] = old_vs_new(old_raw[k], raw[k], 200)
     b_ms, b_by = bound(*work["call"])
     return dict(pool_call_ms=(turns[1] + turns[2]) / 2,
                 old_pool_call_ms=(turns[0] + turns[3]) / 2, turns_ms=turns,
@@ -1398,7 +1530,10 @@ def pool_run_out(what, args):
     one launch of each of the four kernels, exactly one row continued, ==
     the plain full-width version; the continuation timed (events around raw
     launches, profiler device time) beside its plain version (the plain
-    full-width NMS) and its bound, and the whole pool call."""
+    full-width NMS) and its bound, and the whole pool call. With
+    ``--old-nms`` the earlier library's continuation, after its own select,
+    mask and scan, == plain and timed in turns with the package's
+    (``old``)."""
     import torch
 
     from tpudet_torch.ops import nms as nms_ops
@@ -1433,6 +1568,13 @@ def pool_run_out(what, args):
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, picks=int(val.sum()),
                 shape=list(scores.shape), pool_call_ms=call_ms,
                 pool_call_bound_ms=bound(*work["call"])[0], continued=1)
+    if OLD_NMS:
+        old_raw = raw_pool(boxes, scores, ns, max_out, thr, pool, lib=OLD_NMS["lib"])
+        old_raw["all"]()
+        torch.cuda.synchronize()
+        if not nms_equal(old_raw["out"][:2], want):
+            raise AssertionError(f"{what} run-out case: the earlier library's != plain")
+        full["old"] = old_vs_new(old_raw["continue"], raw["continue"], 20)
     log(f"{what} NMS run-out case {tuple(scores.shape)}: row 0 ran out of its pool and "
         f"the continuation took it on, == plain ({int(val.sum())} picks, row 0 "
         f"{int(val[0].sum())}); the continuation {[round(x, 4) for x in turns]} ms "
@@ -1444,8 +1586,10 @@ def pool_run_out(what, args):
 
 def log_pool(what, t):
     kern = "; ".join(f"{k} {v['ms']:.5f} ms (device {fmt_ms(v['device_ms'])}, plain "
-                     f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.6f} {v['bound_by']})"
-                     for k, v in t["kernels"].items())
+                     f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.6f} {v['bound_by']}"
+                     + (f", torch.topk {v['library_ms']:.5f} (device "
+                        f"{fmt_ms(v['library_device_ms'])})" if "library_ms" in v else "")
+                     + ")" for k, v in t["kernels"].items())
     log(f"NMS on {what} {t['shape']} of {t['full_shape']} ({t['picks']} picks): == plain, "
         f"select == the stable order's head, {t['continued']} rows continued, no host "
         f"sync, a CUDA "
@@ -2337,12 +2481,21 @@ def phase_centernet_serve(dev, n_requests=10):
         log(f"request breakdown (device, CUDA events): network {fwd_ms:.3f} ms, "
             f"decode {dec_ms:.3f} ms")
         net_check = network_vs_cpu_normwise(model, x, outputs)
+        # the decode's top K (the select kernel's main-path site) on its own input
+        peaks = center_head.peak_scores(outputs[0][0])[0]
+        top_k = select_site(peaks[None].to(torch.float32).contiguous(),
+                            min(int(model.top_k_results_output), peaks.numel()))
+    log(f"CenterNet's top K {top_k['shape']} of {top_k['full_shape']}: the select kernel "
+        f"== the stable order's head, {top_k['ms']:.5f} ms (device "
+        f"{fmt_ms(top_k['device_ms'])}), plain {top_k['plain_ms']:.4f} ms, torch.topk "
+        f"{top_k['library_ms']:.5f} ms (device {fmt_ms(top_k['library_device_ms'])}), "
+        f"bound {top_k['bound_ms']:.6f} ms ({top_k['bound_by']})")
     profile_requests(model, images[:3])
     del model
     torch.cuda.empty_cache()
     return dict(latencies=latencies, p50=p50, counts=counts, network_ms=fwd_ms,
                 decode_ms=dec_ms, network_vs_cpu=net_check, calibrated=calibrated,
-                head_peak=peak, head_peak_after=after)
+                head_peak=peak, head_peak_after=after, top_k=top_k)
 
 
 def adam_card_vs_cpu(model):
@@ -4790,13 +4943,38 @@ def phase_sync_free(dev, sites):
                 sites=table, card=card)
 
 
+def log_old_vs_new(sites, top_k, run_outs):
+    """With ``--old-nms``: every main-path site's select, CenterNet's top K
+    and the run-outs' continuations, the earlier library's and the
+    package's timed in turns, as one table; the table."""
+    table = {"select": {**{k: t["kernels"]["select"]["old"] for k, t in sites.items()},
+                        "CenterNet top K": top_k["old"]},
+             "continue": {**{k: t["kernels"]["continue"]["old"] for k, t in sites.items()
+                             if "continue" in t["kernels"]},
+                          **{f"{k} (run-out)": t["old"] for k, t in run_outs.items()}}}
+    for kernel, rows in table.items():
+        for site, r in rows.items():
+            log(f"--old-nms {kernel} at {site}: earlier {r['old_ms']:.5f} ms (device "
+                f"{fmt_ms(r['old_device_ms'])}), package {r['new_ms']:.5f} ms (device "
+                f"{fmt_ms(r['new_device_ms'])}); device turns "
+                f"{[fmt_ms(x) for x in r['device_turns_ms']]}")
+    log(json.dumps({"old_vs_new": table}))
+    return table
+
+
 def fmt_share(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-nms", type=Path, help="an earlier csrc/nms.cu, timed beside "
+                    "the package's select and continuation")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 1
@@ -4817,10 +4995,15 @@ def main() -> int:
     from tpudet_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(build.build, ("nms", "assign")))
+    jobs = [lambda: build.build("nms"), lambda: build.build("assign")]
+    if args.old_nms:
+        jobs.append(lambda: old_nms_build(args.old_nms.resolve()))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda job: job(), jobs))
     log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s "
         f"({' '.join(build.NVCC_FLAGS)})")
+    if args.old_nms:
+        OLD_NMS["lib"] = old_nms_load(libs[-1])
 
     # 2. kernels against their plain versions
     from tpudet_torch.heads import ssd as ssd_head
@@ -5029,9 +5212,10 @@ def main() -> int:
                 + families_record(phase22["families"], key)["launches"]
                 + bench_all_record(bench_all, key)["launches"])
 
-    mine_scores = mining["pool"][1]
-    top_p = mine_pool["shape"][1]
-    select_library = event_ms(lambda: torch.topk(mine_scores, top_p, dim=1), 200)
+    if OLD_NMS:
+        log_old_vs_new(sites, cn_serve["top_k"],
+                       {"LH-RCNN negatives": lh_kern["run_out_continuation"],
+                        "RetinaNet decode": r_kern["full_width"], "FCOS decode": fcos_full})
     nms_replaces = {"select": "tpudet/ops/pallas/nms_kernel.py:242",
                     "mask": "tpudet/ops/pallas/nms_kernel.py:86",
                     "scan": "tpudet/ops/pallas/nms_kernel.py:86",
@@ -5049,10 +5233,12 @@ def main() -> int:
                "ms": kern["ms"], "device_ms": kern["device_ms"],
                "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
                "bound_by": kern["bound_by"],
-               "library_ms": select_library if k == "select" else None,
+               "library_ms": kern.get("library_ms"),
                "site": f"SSD300 mining pool {mine_pool['shape']} of "
                        f"{mine_pool['full_shape']}",
                "sites": {site: t["kernels"].get(k) for site, t in sites.items()}}
+        if k == "select":
+            rec["sites"]["CenterNet top K"] = cn_serve["top_k"]
         if k == "continue":
             rec["run_out"] = {"LH-RCNN negatives": lh_run_out, "RetinaNet decode":
                               r_kern["full_width"], "FCOS decode": fcos_full}

@@ -21,7 +21,7 @@ from tpudet_torch.ops.cuda import assign_kernel, nms_kernel
 from torch_assign_cases import CASES as ASSIGN_CASES
 from torch_assign_cases import assign_case, rand_gt, voc_like_gt
 from torch_nms_cases import NAMES as CASES
-from torch_nms_cases import nms_case, retina_decode_case
+from torch_nms_cases import corners, nms_case, retina_decode_case
 
 
 @pytest.fixture
@@ -736,13 +736,24 @@ def _select_case(name):
         scores = rng.uniform(0, 1, (1, 96 * 96)).astype(np.float32)
         scores[rng.uniform(size=scores.shape) < 0.9] = 0.0
         return scores, 100
+    if name == "retina_one_row":  # one row of RetinaNet's 47961: a cluster of 8 blocks
+        scores = rng.uniform(0, 1, (1, 47961)).astype(np.float32)
+        scores[rng.uniform(size=scores.shape) < 0.3] = t_nms.NEG
+        return scores, 512
+    if name in ("past_shared_memory", "past_shared_memory_one_row"):
+        # rows wider than the cluster's shared memory holds: the slices stream
+        rows = 20 if name == "past_shared_memory" else 1
+        scores = np.round(rng.exponential(1.0, (rows, 400_000)), 3).astype(np.float32)
+        scores[rng.uniform(size=scores.shape) < 0.2] = t_nms.NEG
+        return scores, 1000
     raise KeyError(name)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["mining", "retina_decode", "ties_across_edge",
                                   "signed_zeros_nan_inf", "dead_rows", "whole_row",
-                                  "centernet"])
+                                  "centernet", "retina_one_row", "past_shared_memory",
+                                  "past_shared_memory_one_row"])
 def test_select_kernel_equals_stable_order_head(cuda_device, name):
     scores, p = _select_case(name)
     want = nms_kernel.stable_order(torch.from_numpy(scores))[:, :p]
@@ -772,6 +783,68 @@ def test_run_out_continues_across_tiles_and_counts_the_row(cuda_device, monkeypa
         want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _long_run_out_case(seed=21):
+    """Row 0's top 2600 candidates are near-copies of one box: its 512-wide
+    pool (max_out 150) gives one pick and each tile of copies after it none,
+    so the tiles grow from the 149 picks owed (160, 320, 640, 1024) before
+    the rest of the row fills them; row 1 does not run out."""
+    rng = np.random.default_rng(seed)
+    n = 12000
+    boxes = corners(rng, (n,), 0, 600, 4, 40)
+    scores = rng.uniform(0, 1, (2, n)).astype(np.float32)
+    idx = rng.permutation(n)[:2600]
+    boxes[idx] = np.asarray([100, 100, 200, 220], np.float32) + np.linspace(
+        0, 0.5, 2600, dtype=np.float32)[:, None]
+    scores[0, idx] = 2.0 + np.linspace(1, 0, 2600, dtype=np.float32)
+    return boxes, scores, np.full(2, 150, np.int32), 150, 0.5
+
+
+@pytest.mark.cuda
+def test_run_out_owing_picks_over_several_sized_tiles(cuda_device):
+    """The continuation takes row 0 through tiles that grow from the picks
+    owed: == plain, one row continued."""
+    boxes, scores, ns, max_out, thr = _long_run_out_case()
+    cpu = [torch.from_numpy(a) for a in (boxes, scores, ns)]
+    continued = nms_kernel.continued_rows(cuda_device)
+    continued.zero_()
+    got = nms_kernel.batched_greedy_nms_pretopk(*(t.to(cuda_device) for t in cpu),
+                                                max_out, thr)
+    torch.cuda.synchronize()
+    want = t_nms.batched_greedy_nms(*cpu, max_out, thr)
+    assert int(continued) == 1 and int(want[1][0].sum()) == 150
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_pool_call_that_continues_a_row_replays_in_a_cuda_graph(cuda_device):
+    """A pool call whose row 0 runs out, captured in a CUDA graph and replayed
+    on a second draw of the same scene copied into its inputs: == plain, one
+    row continued each replay."""
+    boxes, scores, ns, max_out, thr = _long_run_out_case()
+    other = _long_run_out_case(seed=22)
+    static = [torch.from_numpy(a).to(cuda_device) for a in (boxes, scores, ns)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up: build, load
+        nms_kernel.batched_greedy_nms_pretopk(*static, max_out, thr)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sel, val = nms_kernel.batched_greedy_nms_pretopk(*static, max_out, thr)
+    continued = nms_kernel.continued_rows(cuda_device)
+    for case in (other, (boxes, scores, ns, max_out, thr)):
+        for dst, src in zip(static, case[:3]):
+            dst.copy_(torch.from_numpy(src).to(cuda_device))
+        continued.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = t_nms.batched_greedy_nms(*(torch.from_numpy(a) for a in case[:3]), max_out, thr)
+        assert int(continued) == 1
+        assert torch.equal(val.cpu(), want[1]) and torch.equal(sel.cpu(), want[0])
 
 
 def _ssd300_loss_inputs(dev, b=8, seed=12):

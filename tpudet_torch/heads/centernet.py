@@ -132,6 +132,17 @@ def centernet_loss(keypoints, offset, size, gt, num_classes: int, stride: float 
                                   sample_weight)
 
 
+def peak_scores(keypoints):
+    """``keypoints [C, h, w]`` -> ``(scores [h * w], category [h * w])``: each
+    cell's best class score where it is its 3x3 neighbourhood's peak, else 0,
+    and that class (the decode's top K is taken over these scores)."""
+    s = torch.sigmoid(keypoints).permute(1, 2, 0)                      # [h, w, C]
+    category = first_argmax(s).reshape(-1)
+    best = torch.amax(s, -1)
+    peak = max_pool_same(best[None, None], 3, 1)[0, 0]
+    return torch.where(best == peak, best, 0.0).reshape(-1), category
+
+
 def centernet_decode(keypoints, offset, size, score_threshold: float, top_k: int,
                      stride: float = STRIDE):
     """One image's ``keypoints [C, h, w]``, ``offset``, ``size [2, h, w]`` ->
@@ -139,13 +150,9 @@ def centernet_decode(keypoints, offset, size, score_threshold: float, top_k: int
     ``K = min(top_k, h * w)``, valid where the score is above the
     threshold."""
     _, h, w = keypoints.shape
-    s = torch.sigmoid(keypoints).permute(1, 2, 0)                      # [h, w, C]
-    category = first_argmax(s).reshape(-1)
-    best = torch.amax(s, -1)
-    peak = max_pool_same(best[None, None], 3, 1)[0, 0]
-    scores = torch.where(best == peak, best, 0.0).reshape(-1)
-    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=s.device),
-                            torch.arange(w, dtype=torch.float32, device=s.device),
+    scores, category = peak_scores(keypoints)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=keypoints.device),
+                            torch.arange(w, dtype=torch.float32, device=keypoints.device),
                             indexing="ij")
     byx = torch.stack([yy, xx], -1).reshape(-1, 2) + offset.permute(1, 2, 0).reshape(-1, 2)
     bhw = size.permute(1, 2, 0).reshape(-1, 2)

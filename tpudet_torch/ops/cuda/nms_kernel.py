@@ -28,7 +28,7 @@ import torch
 from tpudet_torch.ops import nms as nms_ops
 
 SORTED_SCAN_MAX_WIDTH = 1024  # the scan kernel's limit: one 64-bit word per lane
-TILE = 1024  # the continuation's tile: positions selected and walked at a time
+TILE = 1024  # the continuation's largest tile (its tiles are sized to the picks owed)
 
 launches = 0
 launches_by_path = {"select": 0, "mask": 0, "scan": 0, "continue": 0}
