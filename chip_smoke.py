@@ -227,6 +227,16 @@ Phases, each raising on failure (nothing is caught):
      SSD300's training shapes, LH-RCNN's ``rpn_select`` at 700x1100 and
      ``per_class_nms`` under ``torch.cuda.set_sync_debug_mode("error")``;
      the main-path pools' old and new pool calls as one table.
+ 25. tpudet's last public functions on the card: ``greedy_nms`` and
+     ``topk_then_nms`` of one SSD300 class row (8828 candidates, the
+     driver's 20 picks at IoU 0.45, tpudet's default ``nms_pre_topk`` 200,
+     a row with more than 200 candidates (truncated) and one with 150), each
+     once under ``torch.cuda.set_sync_debug_mode("error")`` with its
+     kernels' launches counted by design and its outputs == its plain
+     version's on the same card; each call's ms beside the plain version's;
+     the three loss primitives and the four per-image losses (YOLOv2 at 480,
+     YOLOv3 at 448, FCOS at 800x1200, CenterNet at 384) on the card within
+     1e-5 of the CPU's.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -4943,6 +4953,170 @@ def phase_sync_free(dev, sites):
                 sites=table, card=card)
 
 
+API_MAX_OUT = 20  # drivers/testSSD300.py's nms_max_boxes
+API_IOU = 0.45  # and its nms_iou_threshold
+API_PRE_TOPK = 200  # tpudet's default nms_pre_topk (tpudet/models/base.py:224)
+API_FEW = 150  # candidates of the row that is not truncated
+API_REPS = 20
+API_LOSS_RTOL = 1e-5
+
+
+def api_rows(dev, corners):
+    """One SSD300 class row on the card: seeded scores over the 8828
+    anchors' corners, and two candidate masks, the scores over 0.05 (more
+    than ``API_PRE_TOPK``) and the top ``API_FEW``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(25)
+    scores = torch.sigmoid(torch.from_numpy(rng.normal(-2.0, 1.5, corners.shape[0])
+                                            .astype(np.float32))).to(dev)
+    few = scores >= torch.sort(scores, descending=True).values[API_FEW - 1]
+    return scores, scores >= 0.05, few
+
+
+def api_launches(what, counts, want):
+    """Raise unless ``counts`` holds the kernels' launches ``want`` (a dict
+    over ``NMS_KERNELS``)."""
+    got = {k: counts[k] for k in NMS_KERNELS}
+    if got != want:
+        raise AssertionError(f"phase 25: {what} launched {got}, by design {want}")
+
+
+def api_loss_cases(rng):
+    """``(name, card function, its arguments)`` of the three loss primitives
+    and the four per-image losses, on numpy inputs at the drivers' sizes."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.heads import centernet as center_head
+    from tpudet_torch.heads import fcos as fcos_head
+    from tpudet_torch.heads import yolo as yolo_head
+    from tpudet_torch.models.yolo import priors_per_head
+    from tpudet_torch.ops import losses as loss_ops
+    from torch_assign_cases import rand_gt
+
+    def f32(*shape, sd=1.0):
+        return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32))
+
+    def gt(size, g=24):
+        return torch.from_numpy(rand_gt(rng, 1, g, 8, size=size, n_valid_min=1)[0])
+
+    v2 = YOLO_CONFIGS["YOLOv2"]
+    v3 = YOLO_CONFIGS["YOLOv3"]
+    fcos_levels = [(-(-800 // s), -(-1200 // s)) for s in (8, 16, 32, 64, 128)]
+    return [
+        ("softmax_focal", loss_ops.softmax_focal,
+         (f32(8828, 21, sd=2.0), torch.from_numpy(rng.integers(0, 21, 8828)), 0.25, 2.0)),
+        ("penalty_reduced_focal", loss_ops.penalty_reduced_focal,
+         (torch.sigmoid(f32(20, 96, 96, sd=2.0)),
+          torch.from_numpy(rng.uniform(0, 1, (20, 96, 96)).astype(np.float32)),
+          torch.from_numpy(rng.random((20, 96, 96)) < 0.01))),
+        ("neg_log_iou", loss_ops.neg_log_iou,
+         (torch.exp(f32(20017, 4)) * 8.0, torch.exp(f32(20017, 4)) * 8.0)),
+        ("yolov2_image_loss", yolo_head.yolov2_image_loss,
+         (f32(5 * 25, 15, 15, sd=1.5), v2["priors"], gt(480.0), 20, 32.0,
+          (1.0, 1.0, 5.0, 1.0))),
+        ("yolov3_image_loss", yolo_head.yolov3_image_loss,
+         ([f32(3 * 25, s, s, sd=1.5) for s in (14, 28, 56)],
+          priors_per_head(v3["priors"], False), gt(448.0), 20, (1.0, 1.0, 5.0, 1.0))),
+        ("fcos_image_loss", fcos_head.fcos_image_loss,
+         ([(f32(20, h, w), torch.exp(0.5 * f32(4, h, w)) * 4.0, f32(1, h, w))
+           for h, w in fcos_levels], gt(800.0), 20)),
+        ("centernet_image_loss", center_head.centernet_image_loss,
+         (f32(20, 96, 96, sd=2.0), f32(2, 96, 96), torch.exp(f32(2, 96, 96)) * 4.0,
+          gt(384.0), 20)),
+    ]
+
+
+def api_to(args, dev):
+    import torch
+
+    if isinstance(args, torch.Tensor):
+        return args.to(dev)
+    if isinstance(args, (list, tuple)):
+        return type(args)(api_to(a, dev) for a in args)
+    return args
+
+
+def phase_api_rest(dev):
+    """25. ``greedy_nms`` and ``topk_then_nms`` on the kernels, and the loss
+    primitives and per-image losses on the card (see the module's list)."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.heads import ssd as ssd_head
+    from tpudet_torch.models.ssd import SSD300, _ssd_feat_shapes
+    from tpudet_torch.ops import nms as nms_ops
+    from tpudet_torch.ops.cuda import nms_kernel
+
+    t0 = time.perf_counter()
+    anc = ssd_head.build_anchors(300, _ssd_feat_shapes(300, SSD300.extra_strides),
+                                 device=dev)
+    corners = torch.cat([anc.y1x1, anc.y2x2], -1).contiguous()
+    scores, many, few = api_rows(dev, corners)
+    width = corners.shape[0]
+    pool = nms_kernel.pretopk_pool(API_MAX_OUT)
+    calls = {
+        "greedy_nms": (nms_ops.greedy_nms, nms_ops.plain_greedy_nms,
+                       (corners, scores, API_MAX_OUT, API_IOU, many),
+                       dict.fromkeys(nms_kernel.pool_kernels(width, pool), 1)),
+        "topk_then_nms truncated": (
+            nms_ops.topk_then_nms, nms_ops.plain_topk_then_nms,
+            (corners, scores, many, API_PRE_TOPK, API_MAX_OUT, API_IOU),
+            {"select": 2, "mask": 1, "scan": 1}),
+        "topk_then_nms": (
+            nms_ops.topk_then_nms, nms_ops.plain_topk_then_nms,
+            (corners, scores, few, API_PRE_TOPK, API_MAX_OUT, API_IOU),
+            {"select": 2, "mask": 1, "scan": 1})}
+    counts, out = {k: 0 for k in ("nms_rows", *NMS_COUNT_KEYS)}, {}
+    for what, (fn, plain, args, want) in calls.items():
+        fn(*args)  # build and load outside the counted, sync-checked run
+        torch.cuda.synchronize()
+        reset_nms_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        c = nms_counts()
+        api_launches(what, c, {k: want.get(k, 0) for k in NMS_KERNELS})
+        for k in counts:
+            counts[k] += c[k]
+        ref = plain(*args)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"phase 25: {what} on the kernels != its plain version")
+        out[what] = {"ms": event_ms(lambda: fn(*args), API_REPS),
+                     "plain_ms": event_ms(lambda: plain(*args), 3),
+                     "launches_by_path": {k: c[k] for k in NMS_KERNELS},
+                     "picks": int(got[1].sum()),
+                     **({"truncated": bool(got[3])} if len(got) == 4 else {})}
+        log(f"phase 25: {what} of [{width}] ({int(args[4 if len(args) == 5 else 2].sum())} "
+            f"candidates): {out[what]['ms']:.4f} ms a call on the kernels, plain "
+            f"{out[what]['plain_ms']:.4f} ms, launches {out[what]['launches_by_path']}, "
+            f"{out[what]['picks']} picks, == plain, no synchronising call")
+    if not out["topk_then_nms truncated"]["truncated"] or out["topk_then_nms"]["truncated"]:
+        raise AssertionError("phase 25: truncated is not as the candidates' count says")
+    losses = {}
+    for name, fn, args in api_loss_cases(np.random.default_rng(25)):
+        want = fn(*args)
+        on_card = api_to(args, dev)
+        got = fn(*on_card)
+        err = float(torch.linalg.vector_norm((got.cpu() - want).double())
+                    / torch.linalg.vector_norm(want.double()).clamp(min=1e-30))
+        if not (torch.isfinite(got).all() and err <= API_LOSS_RTOL):
+            raise AssertionError(f"phase 25: {name} on the card {err:.3e} from the CPU's")
+        losses[name] = {"rel_err": err, "ms": event_ms(lambda: fn(*on_card), 5)}
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    log(f"phase 25: losses on the card against the CPU: "
+        f"{ {k: round(v['rel_err'], 9) for k, v in losses.items()} }")
+    log(f"phase 25 took {seconds:.1f} s; ms a call "
+        f"{ {k: round(v['ms'], 5) for k, v in out.items()} } on {card}")
+    return dict(seconds=seconds, counts=counts, calls=out, losses=losses, card=card)
+
+
 def log_old_vs_new(sites, top_k, run_outs):
     """With ``--old-nms``: every main-path site's select, CenterNet's top K
     and the run-outs' continuations, the earlier library's and the
@@ -5126,6 +5300,9 @@ def main() -> int:
              "FCOS decode": fcos_pool}
     sync_free = phase_sync_free(dev, sites)
     log(json.dumps({"sync_free": sync_free}))
+    # 25. greedy_nms and topk_then_nms on the kernels; the remaining losses
+    api_rest = phase_api_rest(dev)
+    log(json.dumps({"api_rest": api_rest}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -5204,7 +5381,7 @@ def main() -> int:
                    fcos_serve["counts"], fcos_run["counts"], cn_serve["counts"],
                    cn_run["counts"], lh_serve["counts"], lh_train["rpn"]["counts"],
                    lh_train["rcnn"]["counts"], f_train["counts"], f_eval["counts"],
-                   *res_counts, *ep_counts, *dp_counts]
+                   *res_counts, *ep_counts, *dp_counts, api_rest["counts"]]
 
     def launches(key):
         return (sum(c[key] for c in main_counts) + protocol_record(protocol, key)["launches"]
@@ -5280,7 +5457,8 @@ def main() -> int:
         "protocol": protocol_record(protocol, "nms_rows"),
         "protocol_families": families_record(families, "nms_rows"),
         "protocol_phase22": families_record(phase22["families"], "nms_rows"),
-        "bench_all": bench_all_record(bench_all, "nms_rows")})
+        "bench_all": bench_all_record(bench_all, "nms_rows"),
+        "api_rest": {k: api_rest[k] for k in ("counts", "calls")}})
     records.append(
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",

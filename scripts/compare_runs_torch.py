@@ -3,6 +3,7 @@
     python scripts/compare_runs_torch.py NAME [TPUDET_NAME] [--window=1000]
     python scripts/compare_runs_torch.py --free-run[=DIR] [--window=250]
     python scripts/compare_runs_torch.py --rpn32 [--window=250]
+    python scripts/compare_runs_torch.py --rpn-free-run[=DIR]
 
 Reads ``.convergence/torch_runs/NAME/`` (the port's ``curve.jsonl``,
 ``eval.jsonl``, ``result.json``) and ``.convergence/runs/TPUDET_NAME/``
@@ -21,6 +22,14 @@ port's CPU curves, the port's card rerun from the same state
 (``LHRCNN-long-tpudet-init-rerun``) and tpudet's own run, and the free
 run's classification by the rule that ``PERF.md`` states for it.
 
+``--rpn-free-run`` reads ``tests/torch_lhrcnn_rpn_free_run.py``'s records
+(``DIR``, default ``.convergence/torch_runs/LHRCNN-long-rpn-cpu-free/``) and
+prints :func:`rpn_free_run`: both CPU curves of LHRCNN-long's RPN phase from
+flax's initial variables in 50-step windows, each leaf's side steps against
+the noise floor, and the verdict by the rule below; beside them, not in the
+rule, the windows of the port against itself with its images times
+``1 + 2^-22`` (``--self`` of that script, ``LHRCNN-long-rpn-cpu-self``).
+
 ``--rpn32`` prints :func:`rpn32_probe`: LHRCNN-long's RCNN-phase windows
 (steps 5000-7000) of ``LHRCNN-long-tpudet-init-rpn32`` (its RPN phase in
 float32), of the bfloat16 run ``LHRCNN-long-tpudet-init`` and of tpudet's
@@ -29,6 +38,7 @@ classification by the rule of ROADMAP's Queue 3.
 """
 
 import json
+import math
 import os
 import sys
 
@@ -46,6 +56,23 @@ BF16_RUN = "LHRCNN-long-tpudet-init"
 # (5000, RPN32_END] is the platforms' bf16 arithmetic; RPN32_FAR_PCT or more
 # above in every one leaves the gap open
 RPN32_NEAR_PCT, RPN32_FAR_PCT, RPN32_START, RPN32_END = 1.0, 2.0, 5000, 7000
+RPN_FREE_RUN = "LHRCNN-long-rpn-cpu-free"
+RPN_SELF_RUN = "LHRCNN-long-rpn-cpu-self"  # the port against itself, images x (1 + 2^-22)
+# the RPN free run's rule: the port's RPN step is cleared if every
+# RPN_WINDOW-step window from step RPN_WINDOW_FROM has the two CPU losses
+# within RPN_LOSS_PCT, no leaf's running sum of relative differences grows
+# by RPN_GROWTH_MAX or more from side step RPN_GROWTH_FROM to RPN_GROWTH_TO
+# (a bias grows it 4x, noise 2x), and every leaf's every side step is within
+# RPN_FLOOR_MULT times its noise floor there (the largest of the step-0
+# thread move, that side step's oneDNN and 2^-22 image moves of the port's
+# own step, the repo's gradient-check yardsticks, the 2^-22 image move of
+# tpudet's own step, and the float32 spacing of
+# tpudet's new values over its update); some leaf failing either
+# is a fault; anything else is between. Under RPN_MIN_STEPS steps: no verdict.
+RPN_WINDOW, RPN_WINDOW_FROM, RPN_LOSS_PCT = 50, 100, 1.0
+RPN_GROWTH_FROM, RPN_GROWTH_TO, RPN_GROWTH_MAX = 125, 500, 3.2
+RPN_FLOOR_MULT, RPN_MIN_STEPS = 4.0, 250
+BIAS_Z = 3.0  # after the run, not in the rule: |z| of a leaf's projections read as one sign
 
 
 def _lines(path):
@@ -193,6 +220,121 @@ def free_run(run_dir=None, start=None, width=250, root=os.path.join(ROOT, ".conv
     }
 
 
+def _rpn_windows(steps, a, b, names):
+    """``{end: {names[0]: mean a, names[1]: mean b, "pct": b over a}}`` of
+    each whole ``RPN_WINDOW``-step window of ``{step: record}``."""
+    win = {}
+    for lo in range(0, len(steps) - RPN_WINDOW + 1, RPN_WINDOW):
+        if all(s in steps for s in range(lo, lo + RPN_WINDOW)):
+            x, y = (sum(steps[s][k] for s in range(lo, lo + RPN_WINDOW)) / RPN_WINDOW
+                    for k in (a, b))
+            win[lo + RPN_WINDOW] = {names[0]: x, names[1]: y, "pct": 100 * (y / x - 1)}
+    return win
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else 0.0
+
+
+def _sign_z(xs):
+    """``sum(xs) / sqrt(sum(xs^2))``: about ``sqrt(len(xs))`` in size for
+    terms of one sign and size, about 1 for terms of random sign."""
+    norm = math.sqrt(sum(x * x for x in xs))
+    return sum(xs) / norm if norm > 0 else 0.0
+
+
+def _worst_ratio(leaf):
+    """A leaf's largest side-step difference over its floor at that step."""
+    return max(r / max(f, 1e-300) for r, f in zip(leaf["rel"], leaf["floor"]))
+
+
+def rpn_free_run(run_dir=None, root=os.path.join(ROOT, ".convergence")):
+    """The RPN free run's summary: both CPU losses' ``RPN_WINDOW``-step
+    windows and the port's difference in percent, each leaf's side-step
+    series (relative difference, running-sum norm) beside its noise floor,
+    the growth of the running sums, the leaves that break a test, and the
+    verdict with its reasons. A run that stops short of ``RPN_GROWTH_TO``
+    measures the growth to its last side step ``t``, against
+    ``RPN_GROWTH_MAX * t / RPN_GROWTH_TO`` (linear growth gives ``t / 125``)."""
+    run_dir = run_dir or os.path.join(root, "torch_runs", RPN_FREE_RUN)
+    steps = {r["step"]: r for r in _lines(os.path.join(run_dir, "steps.jsonl"))}
+    side = _lines(os.path.join(run_dir, "side.jsonl"))
+    with open(os.path.join(run_dir, "floor.json")) as f:
+        floor = json.load(f)
+    n = len(steps)
+    win = _rpn_windows(steps, "tpudet_loss", "port_loss", ("tpudet", "port"))
+    chaos = _rpn_windows({r["step"]: r for r in _lines(os.path.join(
+        root, "torch_runs", RPN_SELF_RUN, "steps.jsonl"))}, "port_loss", "bumped_loss",
+        ("port", "bumped"))
+    by_step = {r["step"]: r["leaves"] for r in side}
+    leaves = sorted(floor["rel"])
+    floors = {r["step"]: r["floor"] for r in side}
+    order = sorted(by_step)
+    series = {k: {"floor_threads": floor["rel_threads"][k],
+                  "floor": [max(floor["rel_threads"][k], *(f[k] for f in floors[s].values()))
+                            for s in order],
+                  "rel": [by_step[s][k][0] for s in order],
+                  "proj": [by_step[s][k][1] for s in order],
+                  "sum_norm": [by_step[s][k][2] for s in order]} for k in leaves}
+    last = max((s for s in by_step if s <= RPN_GROWTH_TO), default=0)
+    limit = RPN_GROWTH_MAX * min(last, RPN_GROWTH_TO) / RPN_GROWTH_TO
+    growth, over_floor = {}, {}
+    for k in leaves:
+        if RPN_GROWTH_FROM in by_step and last > RPN_GROWTH_FROM:
+            growth[k] = by_step[last][k][2] / max(by_step[RPN_GROWTH_FROM][k][2], 1e-300)
+        worst = _worst_ratio(series[k])
+        if worst > RPN_FLOOR_MULT:
+            over_floor[k] = worst
+    grown = {k: g for k, g in growth.items() if g >= limit}
+    late = [v["pct"] for end, v in win.items() if end - RPN_WINDOW >= RPN_WINDOW_FROM]
+    loss_ok = bool(late) and max(abs(p) for p in late) <= RPN_LOSS_PCT
+    reasons = []
+    if n < RPN_MIN_STEPS:
+        verdict = "no_verdict"
+        reasons.append(f"{n} steps, under {RPN_MIN_STEPS}")
+    else:
+        if grown:
+            reasons.append(f"{len(grown)} leaves grow {limit:.2f}x or more")
+        if over_floor:
+            reasons.append(f"{len(over_floor)} leaves over {RPN_FLOOR_MULT}x the floor")
+        if not loss_ok:
+            reasons.append(f"a window from step {RPN_WINDOW_FROM} off by more than "
+                           f"{RPN_LOSS_PCT}%")
+        verdict = ("fault" if grown or over_floor
+                   else "rpn_step_cleared" if loss_ok else "between")
+    ratio = sorted(_worst_ratio(series[k]) for k in leaves)
+    # read after the run, not in the rule: a bias keeps its projection's sign
+    # (|z| near the root of the side steps' count), noise flips it (|z| ~ 1);
+    # a leaf's typical side step over its floor says whether its growth
+    # follows the floor's
+    bias_z = {k: _sign_z(series[k]["proj"][1:]) for k in leaves}
+    rel_floor = {k: _median([r / max(f, 1e-300) for r, f in
+                             zip(series[k]["rel"], series[k]["floor"]) if f > 0])
+                 for k in leaves}
+    return {"steps": n, "side_steps": sorted(by_step), "growth_to": last,
+            "growth_limit": limit,
+            "windows": {str(k): {c: round(v, 6) for c, v in w.items()}
+                        for k, w in win.items()},
+            "chaos_windows": {str(k): {c: round(v, 6) for c, v in w.items()}
+                              for k, w in chaos.items()},
+            "growth": {k: round(g, 4) for k, g in growth.items()},
+            "growth_max": max(growth.values(), default=None),
+            "growth_median": sorted(growth.values())[len(growth) // 2] if growth else None,
+            "over_floor_ratio_max": ratio[-1] if ratio else None,
+            "over_floor_ratio_median": ratio[len(ratio) // 2] if ratio else None,
+            "leaves_grown": grown, "leaves_over_floor": over_floor,
+            "floor": {k: floor[k] for k in floor
+                      if k not in ("rel", "rel_threads", "rel_onednn")},
+            "series": series, "verdict": verdict, "reasons": reasons,
+            "after_run": {
+                "bias_z": {k: round(v, 4) for k, v in bias_z.items()},
+                "leaves_sign_consistent": {k: round(v, 4) for k, v in bias_z.items()
+                                           if abs(v) >= BIAS_Z},
+                "rel_over_floor_median": {k: round(v, 4) for k, v in rel_floor.items()},
+                "grown_rel_over_floor_max": max((rel_floor[k] for k in grown), default=None)}}
+
+
 def rpn32_probe(width=250, root=os.path.join(ROOT, ".convergence")):
     """The windows of the float32-RPN probe, the bfloat16 run and tpudet's
     run: each port run over tpudet's in percent in the RCNN windows
@@ -232,6 +374,12 @@ def main(argv):
             width = int(a.split("=")[1])
     if "--rpn32" in argv:
         print(json.dumps(rpn32_probe(width or 250)))
+        return 0
+    rpn_free = [a for a in argv if a.split("=")[0] == "--rpn-free-run"]
+    if rpn_free:
+        run_dir = rpn_free[0].split("=", 1)[1] if "=" in rpn_free[0] else None
+        out = rpn_free_run(run_dir)
+        print(json.dumps({k: v for k, v in out.items() if k != "series"}))
         return 0
     free = [a for a in argv if a.split("=")[0] == "--free-run"]
     if free:

@@ -950,3 +950,70 @@ def test_centernet_top_k_takes_the_select_kernel(cuda_device, monkeypatch):
     assert torch.equal(top.cpu(), nms_kernel.stable_order(flat.cpu())[:, :100])
     assert int((flat == 0).sum()) > 100  # most cells are not peaks: ties at 0
     assert all(bool(torch.isfinite(g).all()) for g in got[:2])
+
+
+def _class_row(cuda_device, seed=17, n_active=None):
+    """One SSD300 decode class row on the card: the 8828 anchors' corners,
+    seeded scores (every score over 0.5 active, or the top ``n_active``)."""
+    boxes, scores, _, _, _ = _mining_pool_case(b=1, seed=seed)
+    scores = torch.sigmoid(scores[0] - 1.0)
+    thr = 0.5 if n_active is None else float(torch.sort(scores, descending=True)
+                                              .values[n_active - 1])
+    return boxes.to(cuda_device), scores.to(cuda_device), (scores >= thr).to(cuda_device)
+
+
+@pytest.mark.cuda
+def test_greedy_nms_runs_the_kernels_with_no_host_sync(cuda_device):
+    """``greedy_nms`` of one SSD300 class row (8828 candidates, 200 picks,
+    a device budget) on the card: the pool's select, mask, scan and
+    continuation launch once each, nothing synchronises, and the picks ==
+    the plain loop's on the CPU."""
+    boxes, scores, active = _class_row(cuda_device)
+    budget = torch.tensor(150, device=cuda_device)
+    t_nms.greedy_nms(boxes, scores, 200, 0.45, active, budget)  # build and load
+    torch.cuda.synchronize()
+    before = dict(nms_kernel.launches_by_path)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sel, valid = t_nms.greedy_nms(boxes, scores, 200, 0.45, active, budget)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    assert used == {"select": 1, "mask": 1, "scan": 1, "continue": 1}
+    want = t_nms.plain_greedy_nms(boxes.cpu(), scores.cpu(), 200, 0.45, active.cpu(), 150)
+    assert torch.equal(sel.cpu(), want[0]) and torch.equal(valid.cpu(), want[1])
+    assert int(valid.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_topk,n_active", [(200, None), (200, 150), (1200, None),
+                                               (8828, None)])
+def test_topk_then_nms_on_the_card_equals_plain(cuda_device, pre_topk, n_active):
+    """``topk_then_nms`` of an SSD300 class row on the card with no host
+    sync: at ``pre_topk`` 200 the select kernel takes the top 200 and the
+    pool's kernels run over them (truncated where more than 200 are active,
+    not where 150 are); past the select's width (1200, and all 8828) the
+    whole row goes to the pool. Every output == ``plain_topk_then_nms`` on
+    the CPU."""
+    boxes, scores, active = _class_row(cuda_device, n_active=n_active)
+    args = (boxes, scores, active, pre_topk, 100, 0.45)
+    t_nms.topk_then_nms(*args)
+    torch.cuda.synchronize()
+    before = dict(nms_kernel.launches_by_path)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t_nms.topk_then_nms(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in nms_kernel.launches_by_path.items()}
+    if pre_topk <= nms_kernel.SORTED_SCAN_MAX_WIDTH:  # top k, then its pool
+        assert used == {"select": 2, "mask": 1, "scan": 1, "continue": 0}
+    else:  # the first candidate, then the whole row's pool
+        assert used == {"select": 2, "mask": 1, "scan": 1, "continue": 1}
+    want = t_nms.plain_topk_then_nms(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                                       for a in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(got[3]) == (pre_topk < 8828 and int(active.sum()) > pre_topk)

@@ -83,10 +83,8 @@ def gaussian_sigma(h, w, valid, min_overlap: float = 0.7):
     return torch.amin(all_r, (0, 2))
 
 
-def centernet_loss(keypoints, offset, size, gt, num_classes: int, stride: float = STRIDE,
-                   sample_weight=None):
-    """The mean over the batch of each image's loss; NCHW head outputs,
-    ``gt [B, G, 5]``."""
+def _images_loss(keypoints, offset, size, gt, stride: float):
+    """Each image's loss ``[B]``; NCHW head outputs, ``gt [B, G, 5]``."""
     b, c, h, w = keypoints.shape
     p = h * w
     g = matching.unpack_gt(gt)
@@ -128,7 +126,21 @@ def centernet_loss(keypoints, offset, size, gt, num_classes: int, stride: float 
     denom = 2.0 * num_g
     offset_loss = torch.sum(loss_ops.jnp_abs(nyx - cell - off_p) * vf, (1, 2)) / denom
     size_loss = torch.sum(loss_ops.jnp_abs(nhw - size_p) * vf, (1, 2)) / denom
-    return loss_ops.weighted_mean(keyp_loss + 0.1 * size_loss + offset_loss,
+    return keyp_loss + 0.1 * size_loss + offset_loss
+
+
+def centernet_image_loss(keypoints, offset, size, gt, num_classes: int,
+                         stride: float = STRIDE):
+    """One image's loss: ``keypoints [C, h, w]``, ``offset`` and ``size [2, h,
+    w]``, ``gt [G, 5]`` (the classes are ``keypoints``' channels)."""
+    return _images_loss(keypoints[None], offset[None], size[None], gt[None], stride)[0]
+
+
+def centernet_loss(keypoints, offset, size, gt, num_classes: int, stride: float = STRIDE,
+                   sample_weight=None):
+    """The mean over the batch of each image's loss
+    (:func:`centernet_image_loss`); NCHW head outputs, ``gt [B, G, 5]``."""
+    return loss_ops.weighted_mean(_images_loss(keypoints, offset, size, gt, stride),
                                   sample_weight)
 
 

@@ -193,21 +193,31 @@ def _level_loss(pconf, preg, pcenter, g: matching.GtArrays, band, stride: float,
     return torch.where(routed.any(-1) & (denom > 0.0), total, 0.0)
 
 
-def fcos_loss(level_preds, gt, num_classes: int, sample_weight=None,
-              consistent: bool = False):
-    """The mean over the batch of each image's loss: the sum of the levels'
-    (``consistent``: the levels' terms over the image's positive-location
-    count, at least 1). ``level_preds`` are the net's NCHW outputs, ``gt``
-    ``[B, G, 5]``."""
+def _images_loss(level_preds, gt, num_classes: int, consistent: bool):
+    """Each image's loss ``[B]``: the sum of the levels' (``consistent``: the
+    levels' terms over the image's positive-location count, at least 1)."""
     g = matching.unpack_gt(gt)
     terms = [_level_loss(*lvl, g, band, float(stride), num_classes, consistent)
              for lvl, band, stride in zip(level_preds, SIZE_BANDS, STRIDES)]
     if consistent:
         iou_l, heat_l, center_l, num_pos = (sum(t[i] for t in terms) for i in range(4))
-        per_image = (iou_l + heat_l + center_l) / torch.clamp(num_pos, min=1.0)
-    else:
-        per_image = sum(terms)
-    return loss_ops.weighted_mean(per_image, sample_weight)
+        return (iou_l + heat_l + center_l) / torch.clamp(num_pos, min=1.0)
+    return sum(terms)
+
+
+def fcos_image_loss(level_preds, gt, num_classes: int, consistent: bool = False):
+    """One image's loss: ``level_preds`` the five levels' ``(conf [C, H, W],
+    reg [4, H, W], center [1, H, W])``, ``gt [G, 5]``."""
+    return _images_loss([[t[None] for t in lvl] for lvl in level_preds], gt[None],
+                        num_classes, consistent)[0]
+
+
+def fcos_loss(level_preds, gt, num_classes: int, sample_weight=None,
+              consistent: bool = False):
+    """The mean over the batch of each image's loss (:func:`fcos_image_loss`).
+    ``level_preds`` are the net's NCHW outputs, ``gt`` ``[B, G, 5]``."""
+    return loss_ops.weighted_mean(_images_loss(level_preds, gt, num_classes, consistent),
+                                  sample_weight)
 
 
 def fcos_decode(level_preds, num_classes: int, score_threshold: float,

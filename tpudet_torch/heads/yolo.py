@@ -208,10 +208,9 @@ def _class_nms(boxes, conf, num_classes, score_threshold, iou_threshold, max_box
 
 
 # --------------------------------------------------------------------- YOLOv2
-def yolov2_loss(pred, priors_hw, gt, num_classes, downsampling_rate, scales,
-                sample_weight=None, consistent=False):
-    """The mean over the batch of each image's loss; ``scales`` = (coord,
-    class, obj, noobj); ``pred`` NCHW, ``gt [B, G, 5]``."""
+def _yolov2_images(pred, priors_hw, gt, num_classes, downsampling_rate, scales,
+                   consistent):
+    """Each image's YOLOv2 loss ``[B]``: ``pred`` NCHW, ``gt [B, G, 5]``."""
     pclass, pyx, phw, pobj = split_pred(pred, len(priors_hw), num_classes)
     fh, fw = pclass.shape[1], pclass.shape[2]
     centers, prior_hw = grid_prior_arrays(fh, fw, priors_hw, pred.device)
@@ -224,9 +223,25 @@ def yolov2_loss(pred, priors_hw, gt, num_classes, downsampling_rate, scales,
     noobj_l = _noobj_term(pobj, centers, prior_hw, gn_yx, gn_hw, g.valid, m.cell, 0.6,
                           swapped_corners=not consistent)
     coord_s, class_s, obj_s, noobj_s = scales
-    per_image = (coord_s * (yx_l + hw_l) + class_s * cls_l + obj_s * obj_l
-                 + noobj_s * noobj_l)
-    return loss_ops.weighted_mean(per_image, sample_weight)
+    return (coord_s * (yx_l + hw_l) + class_s * cls_l + obj_s * obj_l
+            + noobj_s * noobj_l)
+
+
+def yolov2_image_loss(pred, priors_hw, gt, num_classes, downsampling_rate, scales,
+                      consistent=False):
+    """One image's loss: ``pred [K*(C+5), H, W]``, ``gt [G, 5]``; ``scales``
+    = (coord, class, obj, noobj)."""
+    return _yolov2_images(pred[None], priors_hw, gt[None], num_classes,
+                          downsampling_rate, scales, consistent)[0]
+
+
+def yolov2_loss(pred, priors_hw, gt, num_classes, downsampling_rate, scales,
+                sample_weight=None, consistent=False):
+    """The mean over the batch of each image's loss; ``scales`` = (coord,
+    class, obj, noobj); ``pred`` NCHW, ``gt [B, G, 5]``."""
+    return loss_ops.weighted_mean(
+        _yolov2_images(pred, priors_hw, gt, num_classes, downsampling_rate, scales,
+                       consistent), sample_weight)
 
 
 def yolov2_decode(pred, priors_hw, num_classes, downsampling_rate, score_threshold,
@@ -242,11 +257,10 @@ def yolov2_decode(pred, priors_hw, num_classes, downsampling_rate, score_thresho
 CELL_STRIDES = (32.0, 16.0, 8.0)
 
 
-def yolov3_loss(preds, priors_per_head, gt, num_classes, scales, sample_weight=None,
-                consistent=False):
-    """``0.5 *`` the mean over the batch of each image's 3-scale loss. Head h
-    takes the gt divided by ``CELL_STRIDES[h]``; ``priors_per_head`` are
-    already divided (Q4). Each gt goes to the head whose responsible prior
+def _yolov3_images(preds, priors_per_head, gt, num_classes, scales, consistent):
+    """Each image's 3-scale loss ``[B]``. Head h takes the gt divided by
+    ``CELL_STRIDES[h]``; ``priors_per_head`` are already divided (Q4). Each
+    gt goes to the head whose responsible prior
     has the strictly largest IoU (ties to head 3); each head's no-object mask
     uses every valid gt's cell, routed there or not. Positive and negative
     terms are divided by the image's gt count (at least 1e-8)."""
@@ -277,7 +291,23 @@ def yolov3_loss(preds, priors_per_head, gt, num_classes, scales, sample_weight=N
     coord_s, class_s, obj_s, noobj_s = scales
     pos = (coord_s * coord + class_s * class_l + obj_s * obj_l) / n
     neg = noobj_s * noobj / n
-    return 0.5 * loss_ops.weighted_mean(pos + neg, sample_weight)
+    return pos + neg
+
+
+def yolov3_image_loss(preds, priors_per_head, gt, num_classes, scales, consistent=False):
+    """One image's 3-scale loss (without the batch loss's 0.5): ``preds``
+    three ``[K*(C+5), H, W]`` heads, ``gt [G, 5]``."""
+    return _yolov3_images([p[None] for p in preds], priors_per_head, gt[None],
+                          num_classes, scales, consistent)[0]
+
+
+def yolov3_loss(preds, priors_per_head, gt, num_classes, scales, sample_weight=None,
+                consistent=False):
+    """``0.5 *`` the mean over the batch of each image's 3-scale loss
+    (:func:`yolov3_image_loss`)."""
+    return 0.5 * loss_ops.weighted_mean(
+        _yolov3_images(preds, priors_per_head, gt, num_classes, scales, consistent),
+        sample_weight)
 
 
 def yolov3_decode(preds, priors_per_head, num_classes, score_threshold, iou_threshold,

@@ -1,9 +1,10 @@
-"""Loss primitives of the SSD family (counterpart of ``tpudet/ops/losses.py``).
+"""Loss primitives shared by the heads (counterpart of ``tpudet/ops/losses.py``).
 
 Same formulas as tpudet's, written out rather than taken from ``torch.nn``
 (``torch.log_softmax`` sums in another way): elementwise and rowwise functions,
-with the reductions left to the callers. The focal and IoU losses live with
-the families that use them.
+with the reductions left to the callers. The heads that need a focal or IoU
+term in another layout (RetinaNet's rows, CenterNet's planes, FCOS's masked
+sums) spell it beside their loss.
 """
 
 from __future__ import annotations
@@ -65,6 +66,40 @@ def sigmoid_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.
     ``jnp.maximum`` does, and ``|x|`` is :func:`jnp_abs`."""
     return (torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
             + torch.log1p(torch.exp(-jnp_abs(logits))))
+
+
+def softmax_focal(logits: torch.Tensor, labels: torch.Tensor, alpha: float,
+                  gamma: float) -> torch.Tensor:
+    """RetinaNet's softmax focal loss per row: ``alpha (1 - p)^gamma (-log p)``,
+    ``p`` the softmax probability of the true class."""
+    ce = softmax_cross_entropy(logits, labels)
+    p = torch.exp(-ce)
+    return alpha * torch.pow(1.0 - p, gamma) * ce
+
+
+def penalty_reduced_focal(sigmoid_hm: torch.Tensor, gaussian_gt: torch.Tensor,
+                          pos_mask: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """CenterNet's keypoint focal loss per location: ``-(1 - s)^2 log(s)`` where
+    ``pos_mask``, else ``-(1 - g)^4 s^2 log(1 - s)``; the caller divides by
+    the number of objects."""
+    s = sigmoid_hm
+    pos = -torch.square(1.0 - s) * torch.log(s + eps)
+    neg = -torch.pow(1.0 - gaussian_gt, 4.0) * torch.square(s) * torch.log(1.0 - s + eps)
+    return torch.where(pos_mask, pos, neg)
+
+
+def neg_log_iou(p_tlbr: torch.Tensor, g_tlbr: torch.Tensor,
+                eps: float = 1e-12) -> torch.Tensor:
+    """FCOS's regression loss ``-log(IoU)`` of predicted and target (top, left,
+    bottom, right) distances at the same location."""
+    pt, pl, pb, pr = p_tlbr.unbind(-1)
+    gt_, gl, gb, gr = g_tlbr.unbind(-1)
+    p_area = (pt + pb) * (pl + pr)
+    g_area = (gt_ + gb) * (gl + gr)
+    inter = ((torch.minimum(pt, gt_) + torch.minimum(pb, gb))
+             * (torch.minimum(pl, gl) + torch.minimum(pr, gr)))
+    iou = inter / (p_area + g_area - inter + eps)
+    return -torch.log(iou + eps)
 
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:

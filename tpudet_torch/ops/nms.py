@@ -7,9 +7,10 @@ retires itself, so zero-area boxes (NaN IoU) cannot be picked twice. Unused
 output slots hold index 0 and ``valid`` False.
 
 :func:`batched_greedy_nms` here is the plain PyTorch version. It is what the CPU
-runs and what the CUDA kernel (``tpudet_torch/ops/cuda/nms_kernel.py``) is held
-against; :func:`per_class_nms` goes through the kernel's wrapper, which takes
-this plain version only for CPU tensors.
+runs and what the CUDA kernels (``tpudet_torch/ops/cuda/nms_kernel.py``) are held
+against; :func:`greedy_nms`, :func:`topk_then_nms` and :func:`per_class_nms` go
+through the kernels' wrapper on CUDA tensors and take the plain versions only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -74,17 +75,143 @@ def batched_greedy_nms(boxes: torch.Tensor, scores: torch.Tensor,
     return sel, valid
 
 
+def _one_row(scores, active, num_select, max_out):
+    """A row's scores as ``[1, N]`` float32 with inactive entries at ``NEG``,
+    and its budget as ``[1]`` int32 on the scores' device (a tensor budget
+    stays on the device)."""
+    masked = scores.detach().to(torch.float32)
+    if active is not None:
+        masked = torch.where(active, masked, NEG)
+    if num_select is None:
+        num_select = max_out
+    if isinstance(num_select, torch.Tensor):
+        ns = num_select.reshape(1).to(scores.device, torch.int32)
+    else:
+        ns = torch.full((1,), int(num_select), dtype=torch.int32, device=scores.device)
+    return masked.reshape(1, -1).contiguous(), ns
+
+
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
                iou_threshold: float, active: torch.Tensor | None = None,
-               num_select: int | None = None):
+               num_select=None):
     """Single-row greedy NMS: ``boxes [N, 4]``, ``scores [N]``; optional ``active``
-    ``[N]`` bool mask and ``num_select`` budget. Returns
-    ``(indices [max_out] int32, valid [max_out] bool)``."""
-    budget = max_out if num_select is None else num_select
-    ns = torch.as_tensor([budget], dtype=torch.int32, device=scores.device)
-    sel, valid = batched_greedy_nms(boxes, scores[None], ns, max_out, iou_threshold,
-                                    active=None if active is None else active[None])
+    ``[N]`` bool mask and ``num_select`` budget (an int or a device scalar).
+    Returns ``(indices [max_out] int32, valid [max_out] bool)``.
+
+    CUDA tensors run the NMS kernels through the pre-top-k pool
+    (``nms_kernel.batched_greedy_nms_pretopk``: select, scan and, where the
+    row is wider than its pool, the continuation), with no host sync; CPU
+    tensors run the plain :func:`batched_greedy_nms`; any other device
+    raises."""
+    from tpudet_torch.ops.cuda import nms_kernel  # imports this module
+
+    dev = scores.device.type
+    if dev == "cpu":
+        return plain_greedy_nms(boxes, scores, max_out, iou_threshold, active, num_select)
+    if dev != "cuda":
+        raise ValueError(f"no NMS implementation for device {scores.device}")
+    masked, ns = _one_row(scores, active, num_select, max_out)
+    sel, valid = nms_kernel.batched_greedy_nms_pretopk(
+        boxes.detach().to(torch.float32).contiguous(), masked, ns, max_out, iou_threshold)
     return sel[0], valid[0]
+
+
+def plain_greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+                     iou_threshold: float, active: torch.Tensor | None = None,
+                     num_select=None):
+    """The plain version of :func:`greedy_nms`, on any device."""
+    masked, ns = _one_row(scores, active, num_select, max_out)
+    sel, valid = batched_greedy_nms(boxes.detach().to(torch.float32), masked, ns, max_out,
+                                    iou_threshold)
+    return sel[0], valid[0]
+
+
+def _top_then_nms(boxes, masked, top, max_out, iou_threshold, nms_fn):
+    """Greedy NMS (``nms_fn``, :func:`greedy_nms`'s signature) over the
+    candidates at ``top`` (``[k]`` positions of ``masked [N]``, in
+    :func:`stable_order`); the picks' boxes and scores, ``valid``."""
+    top = top.long()
+    top_scores, top_boxes = masked[top], boxes[top]
+    sel, valid = nms_fn(top_boxes, top_scores, max_out, iou_threshold,
+                        active=top_scores > NEG / 2)
+    sel = sel.long()
+    return top_boxes[sel], top_scores[sel], valid
+
+
+def topk_then_nms(boxes: torch.Tensor, scores: torch.Tensor, active: torch.Tensor,
+                  pre_topk: int, max_out: int, iou_threshold: float):
+    """tpudet's score-filtered NMS: the top ``min(pre_topk, N)`` active
+    candidates (descending score, ties to the lowest index, as
+    ``lax.top_k``), then greedy NMS over them.
+
+    Returns ``(sel_boxes [max_out, 4], sel_scores [max_out], valid [max_out],
+    truncated)``: ``truncated`` a bool device scalar, True when more than
+    ``pre_topk`` candidates are active and ``pre_topk < N`` (the result may
+    then differ from NMS of the whole row). Unused slots hold the first
+    candidate's box and score.
+
+    CUDA tensors take the top ``k`` with the select kernel and run
+    :func:`greedy_nms`'s kernels over the ``[1, k]`` row, with no host sync.
+    Above the select kernel's width (``SORTED_SCAN_MAX_WIDTH``) the whole row
+    goes to the kernels with the candidates outside the top ``k`` made
+    inactive: with ``k = N`` that is the row itself, else the top ``k`` are
+    those of :func:`~tpudet_torch.ops.cuda.nms_kernel.stable_order` (a
+    stable sort on the card). CPU tensors take the same steps through the
+    wrappers' plain versions (the head of ``stable_order``,
+    :func:`batched_greedy_nms`); :func:`plain_topk_then_nms` is the plain
+    version on any device.
+    """
+    from tpudet_torch.ops.cuda import nms_kernel  # imports this module
+
+    n = scores.shape[-1]
+    k = min(pre_topk, n)
+    dev = scores.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no NMS implementation for device {dev}")
+    if k <= 0:  # no candidate: nothing to launch
+        return plain_topk_then_nms(boxes, scores, active, pre_topk, max_out,
+                                   iou_threshold)
+    masked = _one_row(scores, active, None, max_out)[0]
+    truncated = _truncated(active, k, n)
+    boxes = boxes.detach().to(torch.float32).contiguous()
+    if k <= nms_kernel.SORTED_SCAN_MAX_WIDTH:
+        top = nms_kernel.select_top(masked, k)[0]
+        return _top_then_nms(boxes, masked[0], top, max_out, iou_threshold,
+                             greedy_nms) + (truncated,)
+    first = nms_kernel.select_top(masked, 1)[0].long()
+    keep = None
+    if k < n:
+        keep = torch.zeros(n, dtype=torch.bool, device=dev).index_fill_(
+            0, nms_kernel.stable_order(masked)[0, :k].long(), True)  # no host copy
+    sel, valid = greedy_nms(boxes, masked[0], max_out, iou_threshold, active=keep)
+    pick = torch.where(valid, sel.long(), first)
+    return boxes[pick], masked[0, pick], valid, truncated
+
+
+def _truncated(active, k, n):
+    if k < n:
+        return torch.sum(active) > k
+    return torch.zeros((), dtype=torch.bool, device=active.device)
+
+
+def plain_topk_then_nms(boxes: torch.Tensor, scores: torch.Tensor, active: torch.Tensor,
+                        pre_topk: int, max_out: int, iou_threshold: float):
+    """The plain version of :func:`topk_then_nms`, on any device: the head of
+    :func:`~tpudet_torch.ops.cuda.nms_kernel.stable_order`, then
+    :func:`batched_greedy_nms` over it."""
+    from tpudet_torch.ops.cuda import nms_kernel  # imports this module
+
+    n = scores.shape[-1]
+    k = min(pre_topk, n)
+    truncated = _truncated(active, k, n)
+    if k <= 0:
+        return (boxes.new_zeros((max_out, 4), dtype=torch.float32),
+                scores.new_zeros((max_out,), dtype=torch.float32),
+                torch.zeros(max_out, dtype=torch.bool, device=scores.device), truncated)
+    masked = _one_row(scores, active, None, max_out)[0]
+    top = nms_kernel.stable_order(masked)[0, :k]
+    return _top_then_nms(boxes.detach().to(torch.float32), masked[0], top, max_out,
+                         iou_threshold, plain_greedy_nms) + (truncated,)
 
 
 def per_class_nms(boxes: torch.Tensor, class_scores: torch.Tensor,

@@ -23,7 +23,9 @@ A leaf of any other form raises. :func:`load_flax` then loads strictly, so a
 missing or extra key, or a shape that differs, raises too.
 :func:`opt_state_from_flax` renames tpudet's optimizer state (Momentum's
 ``velocity``, Adam's ``count``, ``mu`` and ``nu``) the same way, and
-:func:`subtree` cuts one module's entries out of a ``state_dict``.
+:func:`subtree` cuts one module's entries out of a ``state_dict``, and
+:func:`lhrcnn_trunk_from_flax` renames tpudet's ``LHRCNNTrunk`` (flat scopes)
+as the port's ``LHRCNNNet``.
 """
 
 from __future__ import annotations
@@ -98,6 +100,34 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"flax leaf {name} appears twice")
             out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+# tpudet's ``LHRCNNTrunk`` holds the RPN head's and the thin map's convolutions
+# at its top level; ``LHRCNNNet`` (the port's and tpudet's) nests them
+LHRCNN_TRUNK_SCOPES = {"rpn": ("rpn_conv", "rpn_conf", "rpn_pbbox"),
+                       "rcnn": ("state5_conv1_1", "state5_conv1_2", "state5_conv2_1",
+                                "state5_conv2_2")}
+
+
+def lhrcnn_trunk_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """tpudet's ``LHRCNNTrunk`` variables -> the ``state_dict`` entries of the
+    port's ``LHRCNNNet`` that hold the same trunk (every entry but the RoI
+    head's): each top-level scope of ``LHRCNN_TRUNK_SCOPES`` goes under its
+    ``rpn`` or ``rcnn`` module. Any other top-level scope than those and
+    ``feature_extractor`` raises."""
+    nest = {inner: outer for outer, inners in LHRCNN_TRUNK_SCOPES.items()
+            for inner in inners}
+    nested: Dict[str, Any] = {}
+    for collection, tree in variables.items():
+        out = nested.setdefault(collection, {})
+        for scope, sub in tree.items():
+            if scope == "feature_extractor":
+                out[scope] = sub
+            elif scope in nest:
+                out.setdefault(nest[scope], {})[scope] = sub
+            else:
+                raise KeyError(f"no LHRCNNNet scope for trunk scope {scope}")
+    return from_flax(nested)
 
 
 def load_flax(module: torch.nn.Module, variables: Mapping[str, Any]) -> None:
