@@ -237,6 +237,16 @@ Phases, each raising on failure (nothing is caught):
      the three loss primitives and the four per-image losses (YOLOv2 at 480,
      YOLOv3 at 448, FCOS at 800x1200, CenterNet at 384) on the card within
      1e-5 of the CPU's.
+ 26. tpudet's two per-model profilers (``scripts/profile_model_torch.py``,
+     ``scripts/profile_decode_torch.py``) for SSD300 (batch 32, 300x300) and
+     LH-RCNN (batch 8, 700x1100, both phases) at tpudet's bench specs, 3
+     timed calls a phase after 1: every figure finite and positive; launches
+     a call by design (SSD300 ``fwd`` none, ``fwd+loss``, ``grad`` and
+     ``step`` one assignment and one mining pool; LH-RCNN two NMS pools in
+     ``+rpn`` and every phase after it; a request's decode one pool on
+     SSD300, two on LH-RCNN), and the whole call's those of its phases'
+     calls; SSD300's four train phases with no synchronising call; the first
+     captured call of each kernel == its plain version.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. float32 convolutions and matmuls
@@ -1443,25 +1453,12 @@ def profile_step(model, images, gt, lr=0.01):
 
 def step_host_syncs(model, images, gt, lr=0.01) -> list:
     """The synchronising CUDA calls of one train step (its batch already on
-    the card), as ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
-    import warnings
-
-    import torch
-
+    the card), as ``torch.cuda.set_sync_debug_mode("warn")`` reports them
+    (``scripts/profile_model_torch.py::host_syncs``)."""
     x, g = model._to_device(images, gt)
     model.train_step(x, g, lr)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            model.train_step(x, g, lr)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    syncs = [str(w.message).splitlines()[0][:160] for w in caught
-             if "synchroniz" in str(w.message).lower()
-             and "prototype" not in str(w.message).lower()]
+    syncs = load_script("profile_model_torch").host_syncs(
+        lambda: model.train_step(x, g, lr), x.device)
     log(f"one train step under the sync debug mode: {len(syncs)} synchronising "
         f"calls {syncs[:4]}")
     return syncs
@@ -5117,6 +5114,107 @@ def phase_api_rest(dev):
     return dict(seconds=seconds, counts=counts, calls=out, losses=losses, card=card)
 
 
+PROFILE_FAMILIES = ("SSD300", "LHRCNN")
+PROFILE_N, PROFILE_WARMUP = 3, 1
+# (assignments, NMS pool calls) a call of each train phase by design
+PROFILE_TRAIN_LAUNCHES = {
+    "SSD300": {"fwd": (0, 0), "fwd+loss": (1, 1), "grad": (1, 1), "step": (1, 1)},
+    "LHRCNN": {"fwd": (0, 0), **{p: (0, 2) for p in ("+rpn", "+rcnn", "grad@rpn",
+                                                       "grad@rcnn", "step", "step@rcnn")}}}
+PROFILE_SERVE_POOLS = {"SSD300": 1, "LHRCNN": 2}  # NMS pool calls a request's decode
+PROFILE_SYNC_FREE = ("SSD300",)  # families whose train phases make no synchronising call
+
+
+def profile_figures_ok(what, phases, by_design, sync_free):
+    """Raise unless every phase's figures are finite and positive (counts
+    finite and not negative), its launches a call are ``by_design[label]``
+    (assignments, NMS pool calls; one sorted scan a pool call) and, where
+    ``sync_free``, it made no synchronising call."""
+    for label, fig in phases.items():
+        timing = [fig[k] for k in ("host_ms", "device_ms", "busy", "kernels")]
+        counts = [fig["syncs"], fig["calls"], *fig["launches"].values()]
+        if not (all(math.isfinite(v) and v > 0 for v in timing)
+                and all(math.isfinite(v) and v >= 0 for v in counts)):
+            raise AssertionError(f"phase 26, {what} {label}: figures {fig}")
+        got = (fig["launches"]["assign"], fig["launches"]["nms_rows"])
+        if got != by_design[label] or fig["launches"]["scan"] != got[1]:
+            raise AssertionError(f"phase 26, {what} {label}: launches a call "
+                                 f"{fig['launches']}; by design {by_design[label]} "
+                                 f"(assignments, NMS pool calls)")
+        if sync_free and fig["syncs"]:
+            raise AssertionError(f"phase 26, {what} {label}: {fig['syncs']} synchronising "
+                                 f"calls; the step has none")
+
+
+def phase_profilers(dev):
+    """26. tpudet's two per-model profilers (``scripts/profile_model_torch.py``,
+    ``scripts/profile_decode_torch.py``) for ``PROFILE_FAMILIES`` at tpudet's
+    bench specs, ``PROFILE_N`` timed calls after ``PROFILE_WARMUP``, each
+    family with the counts set to 0 just before it and read just after: every
+    figure finite and positive; the launches a call by design in each phase
+    (``PROFILE_TRAIN_LAUNCHES``; the serve phases' decodes
+    ``PROFILE_SERVE_POOLS`` pools a request, no assignment); SSD300's four
+    train phases with no synchronising call; the whole call's launches those
+    of its phases' calls; the first captured call of each kernel == its plain
+    version."""
+    t0 = time.perf_counter()
+    train_script = load_script("profile_model_torch")
+    serve_script = load_script("profile_decode_torch")
+    runs = {}
+    for name in PROFILE_FAMILIES:
+        spec = train_script._specs()[name]
+        captured = []
+        undo = dp_spy(captured)
+        t = time.perf_counter()
+        try:
+            reset_kernel_counts()
+            train = train_script.profile_model(name, spec, PROFILE_N, PROFILE_WARMUP,
+                                               device=dev)
+            serve = serve_script.profile_decode(name, spec, PROFILE_N, PROFILE_WARMUP,
+                                                device=dev)
+            counts = kernel_counts()
+        finally:
+            undo()
+        seconds = time.perf_counter() - t
+        pools = PROFILE_SERVE_POOLS[name]
+        profile_figures_ok(f"{name} train", train["phases"], PROFILE_TRAIN_LAUNCHES[name],
+                           name in PROFILE_SYNC_FREE)
+        profile_figures_ok(f"{name} serve", serve["phases"], {
+            "transfer": (0, 0), "forward": (0, 0), "decode": (0, pools), "fused": (0, pools),
+            "full": (0, pools)}, False)
+        want = tuple(sum(f["calls"] * f["launches"][k] for r in (train, serve)
+                         for f in r["phases"].values())
+                     for k in ("assign", "nms_rows"))
+        if (counts["assign"], counts["nms_rows"]) != want or any(
+                counts[k] != counts["nms_rows"] for k in ("select", "mask", "scan")):
+            raise AssertionError(f"phase 26, {name}: the whole call launched {counts}; its "
+                                 f"phases' calls {want} (assignments, NMS pool calls)")
+        first = {}
+        for key, args in captured:
+            first.setdefault(key, args)
+        compared = dp_kernels_vs_plain(list(first.items()))
+        runs[name] = dict(train=train, serve=serve, counts=counts, compared=sorted(first),
+                          seconds=seconds)
+        log(f"phase 26, {name}: train phases host / device ms " + ", ".join(
+            f"{label} {f['host_ms']:.2f} / {f['device_ms']:.2f}"
+            for label, f in train["phases"].items()) + "; serve " + ", ".join(
+            f"{label} {f['host_ms']:.3f} / {f['device_ms']:.3f}"
+            for label, f in serve["phases"].items())
+            + f"; the whole call {counts}; the first call of {', '.join(sorted(first))} "
+            f"== plain ({compared} held); {seconds:.1f} s")
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    log(f"phase 26 took {seconds:.1f} s; {card}")
+    return dict(seconds=seconds, runs=runs, card=card)
+
+
+def profilers_record(profilers, key):
+    """A kernel's launches in phase 26's calls, each family's apart."""
+    runs = profilers["runs"]
+    return {"launches": sum(r["counts"][key] for r in runs.values()),
+            **{name: {"launches": r["counts"][key]} for name, r in runs.items()}}
+
+
 def log_old_vs_new(sites, top_k, run_outs):
     """With ``--old-nms``: every main-path site's select, CenterNet's top K
     and the run-outs' continuations, the earlier library's and the
@@ -5303,6 +5401,9 @@ def main() -> int:
     # 25. greedy_nms and topk_then_nms on the kernels; the remaining losses
     api_rest = phase_api_rest(dev)
     log(json.dumps({"api_rest": api_rest}))
+    # 26. tpudet's two per-model profilers: SSD300 and LH-RCNN, train and serve phases
+    profilers = phase_profilers(dev)
+    log(json.dumps({"profilers": profilers}))
     log(json.dumps({"lhrcnn": {
         "serve_p50_ms": lh_serve["p50"], "serve_ms": lh_serve["latencies"],
         "serve_counts": lh_serve["counts"], "network_ms": lh_serve["network_ms"],
@@ -5387,7 +5488,8 @@ def main() -> int:
         return (sum(c[key] for c in main_counts) + protocol_record(protocol, key)["launches"]
                 + families_record(families, key)["launches"]
                 + families_record(phase22["families"], key)["launches"]
-                + bench_all_record(bench_all, key)["launches"])
+                + bench_all_record(bench_all, key)["launches"]
+                + profilers_record(profilers, key)["launches"])
 
     if OLD_NMS:
         log_old_vs_new(sites, cn_serve["top_k"],
@@ -5458,7 +5560,8 @@ def main() -> int:
         "protocol_families": families_record(families, "nms_rows"),
         "protocol_phase22": families_record(phase22["families"], "nms_rows"),
         "bench_all": bench_all_record(bench_all, "nms_rows"),
-        "api_rest": {k: api_rest[k] for k in ("counts", "calls")}})
+        "api_rest": {k: api_rest[k] for k in ("counts", "calls")},
+        "profilers": profilers_record(profilers, "nms_rows")})
     records.append(
         {"name": "assign", "route": "cuda", "source": "tpudet_torch/ops/cuda/csrc/assign.cu",
          "replaces": "tpudet/ops/pallas/assign_kernel.py:43",
@@ -5471,7 +5574,8 @@ def main() -> int:
                       + protocol_record(protocol, "assign")["launches"]
                       + families_record(families, "assign")["launches"]
                       + families_record(phase22["families"], "assign")["launches"]
-                      + bench_all_record(bench_all, "assign")["launches"]),
+                      + bench_all_record(bench_all, "assign")["launches"]
+                      + profilers_record(profilers, "assign")["launches"]),
          "launches_per_request": serve["counts"]["assign"] / n_requests,
          "launches_per_step": counts["assign"] / n_steps,
          "max_abs_err": 0.0,  # best_iou equal bit for bit, the rest exactly
@@ -5499,7 +5603,8 @@ def main() -> int:
          "protocol": protocol_record(protocol, "assign"),
          "protocol_families": families_record(families, "assign"),
          "protocol_phase22": families_record(phase22["families"], "assign"),
-         "bench_all": bench_all_record(bench_all, "assign")})
+         "bench_all": bench_all_record(bench_all, "assign"),
+         "profilers": profilers_record(profilers, "assign")})
     idle = [r["name"] for r in records if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")

@@ -141,6 +141,31 @@ def _specs():
     }
 
 
+def seeded_batch(spec):
+    """tpudet's bench batch for ``spec``: ``spec["batch"]`` images of uniform
+    pixels from seed 0 (float32 NHWC), each with the same two boxes in gt
+    padded to 60 rows with -1."""
+    h, w = spec["shape"]
+    batch = spec["batch"]
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 255, (batch, h, w, 3)).astype(np.float32)
+    gt = -np.ones((batch, 60, 5), np.float32)
+    gt[:, 0] = [h * 0.5, w * 0.5, h * 0.3, w * 0.25, 7]
+    gt[:, 1] = [h * 0.2, w * 0.7, h * 0.15, w * 0.2, 2]
+    return images, gt
+
+
+def fixed_provider(images, gt):
+    """A data provider that yields ``(images, gt)`` for ever."""
+    def batches():
+        while True:
+            yield images, gt
+
+    h, w = images.shape[1:3]
+    return {"data_shape": [h, w, 3], "num_train": images.shape[0] * 10**9, "num_val": 0,
+            "train_generator": (lambda: None, batches()), "val_generator": None}
+
+
 def _counts():
     return {"assign": assign_kernel.launches, **nms_kernel.launches_by_path}
 
@@ -186,24 +211,12 @@ def bench_model(name, spec, train_steps=6, latency_runs=15, device=None):
 
     dev = device_lib.resolve(device)
     cls = getattr(models, name)
-    h, w = spec["shape"]
     batch = spec["batch"]
-    rng = np.random.default_rng(0)
-    images = rng.uniform(0, 255, (batch, h, w, 3)).astype(np.float32)
-    gt = -np.ones((batch, 60, 5), np.float32)
-    gt[:, 0] = [h * 0.5, w * 0.5, h * 0.3, w * 0.25, 7]
-    gt[:, 1] = [h * 0.2, w * 0.7, h * 0.15, w * 0.2, 2]
-
-    def batches():
-        while True:
-            yield images, gt
-
-    provider = {"data_shape": [h, w, 3], "num_train": batch * 10**9, "num_val": 0,
-                "train_generator": (lambda: None, batches()), "val_generator": None}
+    images, gt = seeded_batch(spec)
     result = {}
 
     t0 = time.time()
-    model = cls(dict(spec["config"]), provider, device=dev)
+    model = cls(dict(spec["config"]), fixed_provider(images, gt), device=dev)
     dimages, dgt = model._to_device(images, gt)
     for _ in range(WARMUP_STEPS):
         loss = model.train_step(dimages, dgt, LR)

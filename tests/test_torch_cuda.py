@@ -1017,3 +1017,38 @@ def test_topk_then_nms_on_the_card_equals_plain(cuda_device, pre_topk, n_active)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert bool(got[3]) == (pre_topk < 8828 and int(active.sum()) > pre_topk)
+
+
+@pytest.mark.cuda
+def test_profile_model_launches_by_design_and_never_syncs(cuda_device, monkeypatch):
+    """``scripts/profile_model_torch.py::profile_model`` on SSD300 at 76,
+    batch 2, on the card: in every phase the device ran kernels; ``fwd``
+    launches neither kernel, ``fwd+loss``, ``grad`` and ``step`` one
+    assignment and one mining pool a call; no phase makes a synchronising
+    call."""
+    import importlib.util
+    from pathlib import Path
+
+    import tpudet_torch.models as t_models
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "profile_model_torch.py"
+    spec = importlib.util.spec_from_file_location("_profile_model_torch", path)
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+
+    class SSD76(SSD300):
+        input_size = 76
+
+    monkeypatch.setattr(t_models, "SSD300", SSD76)
+    bench = prof._specs()["SSD300"]
+    small = dict(bench, batch=2, shape=(76, 76), config=dict(bench["config"], batch_size=2))
+    record = prof.profile_model("SSD300", small, n=2, warmup=1)
+    assert list(record["phases"]) == ["fwd", "fwd+loss", "grad", "step"]
+    for label, fig in record["phases"].items():
+        want = 0 if label == "fwd" else 1
+        launches = fig["launches"]
+        assert (launches["assign"], launches["nms_rows"], launches["scan"]) == (
+            want, want, want), (label, launches)
+        assert fig["syncs"] == 0, label
+        assert fig["device_ms"] > 0 and fig["kernels"] > 0 and fig["host_ms"] > 0, label
+    assert record["device"] != "cpu"

@@ -297,6 +297,34 @@ def test_launch_stops_at_a_failed_rank(tmp_path):
     assert time.perf_counter() - t < 40
 
 
+def test_launch_reports_a_rank_seen_failed_only_after_all_ended(tmp_path, monkeypatch):
+    """The parent's poll comes late, as on a loaded host: every wake-up
+    waits until every rank has ended. The failure is reported in the same
+    form as when a rank is seen failed beside a running one, naming the
+    failed ranks and every exit code."""
+    import time
+
+    real_wait = t_mesh.multiprocessing.connection.wait
+
+    def wait_for_every_rank(objects, timeout=None):
+        pending = list(objects)
+        deadline = time.monotonic() + 120
+        while pending and time.monotonic() < deadline:
+            ready = real_wait(pending, deadline - time.monotonic())
+            pending = [o for o in pending if o not in ready]
+        return list(objects)
+
+    monkeypatch.setattr(t_mesh.multiprocessing.connection, "wait", wait_for_every_rank)
+    with pytest.raises(RuntimeError, match=r"rank\(s\) \[[01, ]+\] of 2 failed: exit codes \["):
+        _launch(worker.fail_rank, 2, tmp_path)
+
+
+def test_launch_takes_a_rank_that_saved_its_result_as_done(tmp_path):
+    """A rank whose teardown aborts after its result is saved (here an
+    ``atexit`` abort) has done its work: the launch returns the results."""
+    assert _launch(worker.abort_at_exit_rank, 2, tmp_path) == [0, 1]
+
+
 def test_launch_times_out(tmp_path):
     with pytest.raises(TimeoutError, match="did not end within 3"):
         t_mesh.launch(worker.sleep_rank, 2, tmp_path, 60, backend="gloo",

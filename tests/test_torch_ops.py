@@ -71,14 +71,17 @@ def _top_level_imports(path):
 def _sources(group):
     """``port``: every file of ``tpudet_torch``. ``chip_smoke``: the script and
     the helpers of ``tests/`` it imports (it runs where JAX is absent).
-    ``entry_points``: the port's drivers, entry, benches and convergence script."""
+    ``entry_points``: the port's drivers, entry, benches, profilers and
+    convergence script."""
     if group == "entry_points":
         paths = [*sorted((REPO / "drivers_torch").glob("*.py")), REPO / "entry_torch.py",
                  REPO / "bench_torch.py", REPO / "scripts" / "train_convergence_torch.py",
                  REPO / "scripts" / "bench_all_torch.py",
                  REPO / "scripts" / "bench_headline_torch.py",
-                 REPO / "scripts" / "lhrcnn_rcnn_probe_torch.py"]
-        assert len(paths) == 19 and all(p.is_file() for p in paths)
+                 REPO / "scripts" / "lhrcnn_rcnn_probe_torch.py",
+                 REPO / "scripts" / "profile_model_torch.py",
+                 REPO / "scripts" / "profile_decode_torch.py"]
+        assert len(paths) == 21 and all(p.is_file() for p in paths)
         return paths
     if group == "port":
         paths = sorted((REPO / "tpudet_torch").rglob("*.py"))

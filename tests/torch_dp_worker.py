@@ -259,6 +259,16 @@ def fail_rank(rank):
     torch.distributed.all_reduce(torch.zeros(1))
 
 
+def abort_at_exit_rank(rank):
+    """Returns its rank, then aborts in the interpreter's teardown (a stand-in
+    for a backend's thread that terminates a finished process)."""
+    import atexit
+    import os
+
+    atexit.register(os.abort)
+    return rank
+
+
 def sleep_rank(rank, seconds):
     import time
 

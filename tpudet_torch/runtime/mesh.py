@@ -31,6 +31,7 @@ import contextlib
 import contextvars
 import multiprocessing.connection
 import os
+import sys
 import time
 from dataclasses import dataclass
 from datetime import timedelta
@@ -337,6 +338,21 @@ def _child(fn, rank, world, nodes, store, backend, device, threads, out, args):
     finally:
         shutdown()
     torch.save(result, out)
+    # The result is saved: leave without the interpreter's teardown, where a
+    # finished rank has aborted (exit -6, "terminate called without an active
+    # exception") after its work was done.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _raise_if_failed(procs) -> None:
+    """Raise ``launch``'s one ``RuntimeError`` if any rank has exited with an
+    error."""
+    codes = [p.exitcode for p in procs]
+    failed = [r for r, code in enumerate(codes) if code not in (None, 0)]
+    if failed:
+        raise RuntimeError(f"rank(s) {failed} of {len(procs)} failed: exit codes {codes}")
 
 
 def launch(fn: Callable, world: int, workdir: str | Path, *args, backend: str,
@@ -350,10 +366,17 @@ def launch(fn: Callable, world: int, workdir: str | Path, *args, backend: str,
     ``threads`` sets each rank's CPU threads (default: the host's cores
     shared out among CPU ranks).
 
-    Raises ``RuntimeError`` as soon as a rank exits with an error (the others
-    are killed) and ``TimeoutError`` when the ranks have not all ended after
-    ``timeout`` seconds. ``fn`` must be importable by name (a module-level
-    function of a module that the child can import)."""
+    Raises ``RuntimeError`` once a rank has exited with an error, the ranks
+    still running killed: ``rank(s) [r, ...] of W failed: exit codes [c,
+    ...]``, naming every rank whose exit code is neither 0 nor None (still
+    running when the parent looked) and every rank's exit code. The parent
+    may see a failed rank while another still runs, or only after every rank
+    has ended (a loaded host wakes it late); the message has this one form
+    either way, and names the ranks that had failed by then. Raises
+    ``TimeoutError`` when the ranks have not all ended after ``timeout``
+    seconds. ``fn`` must be importable by name (a module-level function of a
+    module that the child can import). A rank leaves without the
+    interpreter's teardown once its result is saved."""
     if threads is None and all(torch.device(d).type == "cpu" for d in devices):
         threads = max(1, (os.cpu_count() or 1) // world)
     import torch.multiprocessing as mp
@@ -372,18 +395,13 @@ def launch(fn: Callable, world: int, workdir: str | Path, *args, backend: str,
     deadline = time.monotonic() + timeout
     try:
         while any(p.is_alive() for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-            if failed:
-                raise RuntimeError(f"rank(s) {failed} of {world} failed: exit codes "
-                                   f"{[p.exitcode for p in procs]}")
+            _raise_if_failed(procs)
             left = deadline - time.monotonic()
             if left <= 0:
                 raise TimeoutError(f"{world} ranks did not end within {timeout} s")
             multiprocessing.connection.wait([p.sentinel for p in procs if p.is_alive()],
                                             min(left, 1.0))
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            raise RuntimeError(f"ranks of {world} failed: exit codes {codes}")
+        _raise_if_failed(procs)
     finally:
         for p in procs:
             if p.is_alive():
